@@ -1,22 +1,31 @@
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version at the main path's shapes, then
-drives the port's main path once through ``walnuts_tpu_torch.walnuts``:
-batched adaptive WALNUTS on the 25-coefficient logistic regression (1000
-rows) with the fused kernel, 4096 chains, 100 warmup and 100 sampling
-iterations. It checks that both kernels ran on that path, that the draws
-are finite, and that the pooled posterior mean and sd agree with NumPy
-references (a Newton MAP, its Laplace sd, and the importance-reweighted
-Laplace mean).
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version at the main path's shapes, then drives two paths of the port on
+batched adaptive WALNUTS for the 25-coefficient logistic regression (1000
+rows) with the fused model kernel, 4096 chains, float32:
 
-Run from the root of a checkout:  python3 chip_smoke.py [--profile]
+- the main path, ``walnuts_tpu_torch.walnuts`` (100 warmup + 100 sampling
+  iterations): the replay and logistic-regression kernels must run on it;
+- the fused route: ``run_warmup`` (50 iterations), then ``run_sampling``
+  (100 iterations) twice from the same warmed state, with the unfused
+  tier-2 pass and with ``pallas_pass=True``: the fused-pass kernel must
+  run on the second.
+
+Each path's draws must be finite, and their pooled posterior mean and sd
+must agree with NumPy references (a Newton MAP, its Laplace sd, and the
+importance-reweighted Laplace mean).
+
+Run from the root of a checkout:  python3 chip_smoke.py [--profile] [--ab]
 
 ``--profile`` adds a ``torch.profiler`` window over a short run and prints
-device time by kernel. Any failed phase raises (non-zero exit). The last
-line of standard output is ``{"ok": true, "device": {...}}``; the line
-before it lists each kernel's route, launches on the main path, error
-against its plain version and time.
+device time by kernel. ``--ab`` samples the fused route's warmed state four
+times, unfused, fused, fused, unfused, for an A/B of the two passes. Any
+failed phase raises (non-zero exit). The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists each kernel's
+route, launches on its path, error against its plain version, times and
+bound.
 """
 
 from __future__ import annotations
@@ -38,6 +47,18 @@ DEVICE = "cuda"
 # start in the far tail can stay stuck through 100 warmup iterations, in
 # the reference as in the port
 HALVINGS = 8
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
+# tensor cores (also taken as the integer ALU rate, which the guide's table
+# does not list)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# threefry2x32: 20 rounds of add, rotate (two shifts and an or) and xor,
+# five key injections of three adds: ~115 integer operations a hash
+THREEFRY_OPS = 115
+# cycles of torch.cuda._sleep queued ahead of a timed window, so that the
+# host has enqueued the timed launches before the card reaches them and
+# the events see device time, not the wrappers' host cost (~12 ms)
+LEAD_CYCLES = 20_000_000
 
 
 def card_label() -> str:
@@ -49,20 +70,50 @@ def card_label() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, reps: int = 100, warmup: int = 5) -> float:
-    """Device milliseconds per call of ``fn`` (CUDA events over ``reps``
-    calls after ``warmup`` calls)."""
+def time_ms(fn, reps: int = 100, warmup: int = 5, lead: bool = True) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events over ``reps``
+    calls after ``warmup`` calls. With ``lead`` a sleep kernel runs first,
+    so that the events time the card, not the host's enqueue rate; a plain
+    version that waits on the host is timed without it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if lead:
+        torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def profiled_ms(fn, kernel: str, reps: int = 50) -> float | None:
+    """Device milliseconds per launch of the kernel whose name contains
+    ``kernel``, from a ``torch.profiler`` window around ``reps`` calls of
+    ``fn`` alone; None if the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(e.device_time_total, e.count) for e in prof.key_averages()
+            if kernel in e.key and e.device_time_total > 0]
+    if not hits:
+        return None
+    return sum(h[0] for h in hits) / sum(h[1] for h in hits) / 1e3
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM's rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_replay(card: str) -> dict:
@@ -84,13 +135,25 @@ def check_replay(card: str) -> dict:
     if err != 0:
         raise AssertionError(f"replay kernel differs from its plain version (max {err})")
     ms = time_ms(lambda: prng.replay_split_chain(*args))
-    plain_ms = time_ms(lambda: prng.replay_split_chain_plain(*args), reps=20)
+    host_ms = time_ms(lambda: prng.replay_split_chain(*args), lead=False)
+    dev_ms = profiled_ms(lambda: prng.replay_split_chain(*args), "replay_kernel")
+    plain_ms = time_ms(lambda: prng.replay_split_chain_plain(*args), reps=20,
+                       lead=False)
+    # each lane reads 24 bytes and writes 16; one hash per round, one more
+    # at the round that latches ku
+    hashes = int(n_ends.sum()) + int(((leaf_end_at >= 1) & (leaf_end_at <= n_ends)).sum())
+    bound_ms, bound_by = bound(40.0 * CHAINS, THREEFRY_OPS * hashes)
     print(f"[replay] kernel bitwise equal to plain at C={CHAINS}, n_ends in "
-          f"[0, 12]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+          f"[0, 12]: kernel {ms:.4f} ms (events behind a sleep), profiler "
+          f"device time {dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms, "
+          f"back-to-back calls {host_ms:.4f} ms (the wrapper's host cost); "
+          f"plain {plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by})  [{card}]")
     return dict(name="replay_split_chain", route="cuda",
                 source="walnuts_tpu_torch/csrc/replay.cu",
                 replaces="walnuts_tpu/ops/prng.py:170",
-                max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_logreg(card: str) -> dict:
@@ -114,14 +177,143 @@ def check_logreg(card: str) -> dict:
     np.testing.assert_allclose(g_k, g_p, rtol=1e-4, atol=2e-3)
     err = float(max(np.abs(lp_k - lp_p).max(), np.abs(g_k - g_p).max()))
     ms = time_ms(lambda: logreg_value_grad(theta, x_t, y_t))
+    dev_ms = profiled_ms(lambda: logreg_value_grad(theta, x_t, y_t), "logreg_kernel")
     plain_ms = time_ms(lambda: logreg_value_grad_plain(theta, x_t, y_t))
+    # no single PyTorch call computes the function; the plain version's two
+    # matrix products are the nearest library yardstick
+    z = torch.empty((CHAINS, ROWS), device=DEVICE)
+    mm_ms = time_ms(lambda: (torch.matmul(theta, x_t.T, out=z), z @ x_t))
+    # two products of 2 * B * N * P flops; theta, X, y read, lp and grad written
+    bound_ms, bound_by = bound(4.0 * (2 * CHAINS * DIM + ROWS * DIM + ROWS + CHAINS),
+                               4.0 * CHAINS * ROWS * DIM)
     print(f"[logreg] kernel within lp rtol 1e-5, grad rtol 1e-4 atol 2e-3 of "
           f"plain at ({CHAINS}, {DIM}) x ({ROWS}, {DIM}): max abs err {err:.3e}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+          f"kernel {ms:.4f} ms (profiler {dev_ms if dev_ms is None else f'{dev_ms:.4f}'} "
+          f"ms), plain {plain_ms:.4f} ms, its two torch.matmul products "
+          f"{mm_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+          f"{bound_ms / ms:.3f} of it  [{card}]")
     return dict(name="logreg_value_grad", route="cuda",
                 source="walnuts_tpu_torch/csrc/logreg.cu",
                 replaces="walnuts_tpu/ops/pallas_kernels.py:31",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _pass_case(dim: int, seed: int):
+    """A synthetic lane state at the main path's batch, on the card, its
+    frozen parameters and an empty block output."""
+    from walnuts_tpu_torch.convert import lane_state_from_fields
+    from walnuts_tpu_torch.ops.fused_pass import synthetic_pass_inputs
+
+    fields, p = synthetic_pass_inputs(CHAINS, dim, 5, 6, seed)
+    st = lane_state_from_fields(fields, torch.float32, DEVICE)
+    params = (torch.tensor(p["step"], dtype=torch.float32, device=DEVICE),
+              torch.tensor(p["inv_mass"], dtype=torch.float32, device=DEVICE),
+              torch.tensor(p["min_micro"], device=DEVICE))
+    out = (torch.zeros((6, CHAINS, dim), device=DEVICE),
+           torch.zeros((6, CHAINS), device=DEVICE),
+           torch.zeros((6, CHAINS), dtype=torch.int32, device=DEVICE))
+    return st, params, out
+
+
+def _pass_bytes(before, after, out, dim: int, n_slots: int, cap: int) -> float:
+    """Bytes one pass must move on this data: every lane's keys, replay
+    counts and draw count; on pending lanes their scalars, the leaf's three
+    rows, inv_mass, the stack slots of the merge cascade and the orbit
+    endpoint of the top U-turn check, each read once; every row that
+    changes (the stack push and the banked draw included) written once."""
+    from walnuts_tpu_torch.ops import fused_pass as fp
+    from walnuts_tpu_torch.ops.math import count_trailing_zeros
+
+    pend = (before.draws_done < cap) & before.leaf_done
+    leaf_ok = pend & before.leaf_ok
+    merges = torch.clamp(count_trailing_zeros(before.leaf_idx + 1), max=n_slots)
+    last = leaf_ok & (before.leaf_idx + 1 >= before.n_leaves)
+    rows_read = (4 * pend.sum() + 2 * (merges * leaf_ok).sum() + 2 * last.sum())
+    rows_written = sum(int((getattr(after, n) != getattr(before, n)).any(-1).sum())
+                       for n in fp.ROW_RW)
+    rows_written += int((after.stack_e != before.stack_e).any(-1).sum())
+    rows_written += int((after.draws_done > before.draws_done).sum())
+    scalars = 53 * before.draws_done.numel() + (68 + 80) * int(pend.sum())
+    return 4.0 * dim * (int(rows_read) + rows_written) + scalars
+
+
+def check_fused_pass(card: str, dim: int) -> dict:
+    """One tier-2 pass, kernel against plain, at C = 4096 and width dim."""
+    from walnuts_tpu_torch.ops import fused_pass as fp
+
+    cap, R, max_depth = 5, 6, 5
+    st_k, params, out_k = _pass_case(dim, SEED + dim)
+    st_p, _, out_p = _pass_case(dim, SEED + dim)
+    pristine, _, _ = _pass_case(dim, SEED + dim)
+    fp.fused_pass(st_k, *params, cap, R, max_depth, out_k)
+    fp.fused_pass_plain(st_p, *params, cap, R, max_depth, out_p)
+    torch.cuda.synchronize()
+    float_err = 0.0
+    for name in fp.RW_FIELDS:
+        k, p = fp.lane_field(st_k, name), fp.lane_field(st_p, name)
+        if k.is_floating_point():
+            both = torch.isfinite(k) & torch.isfinite(p)
+            if not torch.equal(torch.isfinite(k), torch.isfinite(p)):
+                raise AssertionError(f"fused pass: {name} finite on one side only")
+            float_err = max(float_err, float((k - p)[both].abs().max()) if both.any() else 0.0)
+        elif not torch.equal(k, p):
+            bad = int((k != p).reshape(CHAINS, -1).any(-1).sum())
+            raise AssertionError(f"fused pass: {name} differs on {bad} lanes")
+    if not torch.equal(out_k[2], out_p[2]):
+        raise AssertionError("fused pass: banked depths differ")
+    float_err = max(float_err, float((out_k[0] - out_p[0]).abs().max()),
+                    float((out_k[1] - out_p[1]).abs().max()))
+    if float_err > 1e-3:
+        raise AssertionError(f"fused pass: floats differ by {float_err}")
+
+    work = [st_k, out_k]
+
+    def reset():
+        for n in fp.RW_FIELDS:
+            fp.lane_field(work[0], n).copy_(fp.lane_field(pristine, n))
+        for t in work[1]:
+            t.zero_()
+
+    def timed(fn, reps, lead):
+        """(device ms, host ms) per call, each call on the pristine state."""
+        total = host = 0.0
+        for i in range(reps + 2):
+            reset()
+            torch.cuda.synchronize()
+            if lead:
+                torch.cuda._sleep(LEAD_CYCLES // 20)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            stop.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                total += start.elapsed_time(stop)
+                host += (t1 - t0) * 1e3
+        return total / reps, host / reps
+
+    ms, host_ms = timed(
+        lambda: fp.fused_pass(st_k, *params, cap, R, max_depth, out_k), 30, True)
+    plain_ms, _ = timed(lambda: fp.fused_pass_plain(st_k, *params, cap, R,
+                                                    max_depth, out_k), 10, False)
+    nbytes = _pass_bytes(pristine, st_p, out_p, dim, max_depth - 1, cap)
+    bound_ms, bound_by = bound(nbytes, 0.0)
+    pend = int(((pristine.draws_done < cap) & pristine.leaf_done).sum())
+    print(f"[fused pass] D={dim}: kernel against plain at C={CHAINS} ({pend} "
+          f"pending lanes): integers, flags and keys equal on every lane, "
+          f"largest float difference {float_err:.3e}; kernel {ms:.4f} ms "
+          f"(the wrapper's host cost {host_ms:.4f} ms a call), plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us "
+          f"({nbytes / 1e6:.3f} MB, {bound_by}), {bound_ms / ms:.3f} of it  [{card}]")
+    return dict(name="fused_pass", route="cuda",
+                source="walnuts_tpu_torch/csrc/fused_pass.cu",
+                replaces="walnuts_tpu/ops/fused_pass.py:172",
+                max_abs_err=float_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def laplace(design: np.ndarray, y: np.ndarray):
@@ -159,20 +351,50 @@ def laplace(design: np.ndarray, y: np.ndarray):
     return beta, np.sqrt(np.diag(cov)), w @ theta
 
 
-def run_main_path(card: str) -> dict:
+def check_posterior(draws: np.ndarray, what: str, card: str, ref) -> None:
+    """``draws`` (R, C, D): finite, and pooled moments within the limits."""
+    if draws.shape[1:] != (CHAINS, DIM) or not np.isfinite(draws).all():
+        raise AssertionError(f"{what}: bad draws: shape {draws.shape}, "
+                             f"finite {np.isfinite(draws).all()}")
+    mode, sd, post_mean = ref
+    pooled = draws.reshape(-1, DIM).astype(np.float64)
+    z_mean = np.abs(pooled.mean(0) - post_mean) / sd
+    z_map = np.abs(pooled.mean(0) - mode) / sd
+    sd_ratio = pooled.std(0) / sd
+    print(f"[posterior] {what}: pooled mean vs reweighted Laplace mean: max "
+          f"|diff| / laplace sd = {z_mean.max():.4f} (limit 0.15); vs Newton "
+          f"MAP {z_map.max():.4f} (reported only); pooled sd / laplace sd in "
+          f"[{sd_ratio.min():.4f}, {sd_ratio.max():.4f}] (limit 20 %)  [{card}]")
+    if z_mean.max() > 0.15 or np.abs(sd_ratio - 1.0).max() > 0.2:
+        raise AssertionError(f"{what}: posterior disagrees with the Laplace approximation")
+
+
+def _reset_counts() -> None:
+    from walnuts_tpu_torch.ops import fused_pass, prng
+    from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
+
+    prng.replay_split_chain.launches = 0
+    logreg_value_grad.launches = 0
+    fused_pass.fused_pass.launches = 0
+
+
+def _counts() -> dict:
+    from walnuts_tpu_torch.ops import fused_pass, prng
+    from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
+
+    return {"replay_split_chain": prng.replay_split_chain.launches,
+            "logreg_value_grad": logreg_value_grad.launches,
+            "fused_pass": fused_pass.fused_pass.launches}
+
+
+def run_main_path(card: str, ref) -> dict:
     import walnuts_tpu_torch as wtt
-    from walnuts_tpu_torch.models.targets import logistic_regression_data
-    from walnuts_tpu_torch.ops import prng
-    from walnuts_tpu_torch.ops.logreg_fused import (
-        logistic_regression_fused,
-        logreg_value_grad,
-    )
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
 
     logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    prng.replay_split_chain.launches = 0
-    logreg_value_grad.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     out, info = wtt.walnuts(
         logp_grad, fused=True, num_params=dim, num_chains=CHAINS,
@@ -183,34 +405,22 @@ def run_main_path(card: str) -> dict:
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"replay_split_chain": prng.replay_split_chain.launches,
-                "logreg_value_grad": logreg_value_grad.launches}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("replay_split_chain", "logreg_value_grad"):
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
 
-    draws = np.stack([np.asarray(c) for c in out])  # (C, R, D)
-    if draws.shape != (CHAINS, 100, DIM) or not np.isfinite(draws).all():
-        raise AssertionError(f"bad draws: shape {draws.shape}, "
-                             f"finite {np.isfinite(draws).all()}")
-    design, y = logistic_regression_data(ROWS, DIM)
-    mode, sd, post_mean = laplace(design, y)
-    pooled = draws.reshape(-1, DIM).astype(np.float64)
-    z_mean = np.abs(pooled.mean(0) - post_mean) / sd
-    z_map = np.abs(pooled.mean(0) - mode) / sd
-    sd_ratio = pooled.std(0) / sd
-    print(f"[posterior] pooled mean vs reweighted Laplace mean: max "
-          f"|diff| / laplace sd = {z_mean.max():.4f} (limit 0.15); vs Newton "
-          f"MAP {z_map.max():.4f} (reported only); pooled sd / laplace sd in "
-          f"[{sd_ratio.min():.4f}, {sd_ratio.max():.4f}] (limit 20 %)  [{card}]")
-    if z_mean.max() > 0.15 or np.abs(sd_ratio - 1.0).max() > 0.2:
-        raise AssertionError("posterior disagrees with the Laplace approximation")
+    draws = np.stack([np.asarray(c) for c in out], axis=1)  # (R, C, D)
+    if draws.shape[0] != 100:
+        raise AssertionError(f"main path: {draws.shape[0]} draws, not 100")
+    check_posterior(draws, "main path", card, ref)
 
     from walnuts_tpu_torch import summary
 
-    ess = summary.ess(list(draws))
-    rhat = summary.r_hat(list(draws))
+    per_chain = list(np.moveaxis(draws, 1, 0))
+    ess = summary.ess(per_chain)
+    rhat = summary.r_hat(per_chain)
     w_s, s_s = info.seconds["warmup"], info.seconds["sampling"]
     n_grads = float(np.sum(info.n_grads))
     print(f"[main path] logreg({DIM}) x {CHAINS} chains, fused, float32, "
@@ -230,6 +440,72 @@ def run_main_path(card: str) -> dict:
               f"per block)  [{card}]")
     print(f"[main path] peak device memory {peak / 2**20:.1f} MiB  [{card}]")
     print(f"[main path] launches on the main path: {json.dumps(launches)}  [{card}]")
+    return launches
+
+
+def run_fused_route(card: str, ref, warmup: int = 50,
+                    order=("unfused", "fused")) -> dict:
+    """Warmup once, then sampling with the unfused and the fused tier-2
+    pass from the same warmed state, in ``order``."""
+    from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
+    from walnuts_tpu_torch.core.adapt import nutpie_init_mass
+    from walnuts_tpu_torch.core.sampler import (
+        freeze_params,
+        init_sample_state,
+        init_warmup_state,
+    )
+    from walnuts_tpu_torch.ops import prng
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+    from walnuts_tpu_torch.ops.math import adapt_step_size
+    from walnuts_tpu_torch.parallel.runtime import run_sampling, run_warmup
+
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    wcfg = WarmupConfig(min_iter=warmup, max_iter=warmup, block_size=50)
+    scfg = SamplingConfig(min_iter=100, max_iter=100, block_size=50,
+                          max_step_halvings=HALVINGS)
+    # the start walnuts() makes for seed SEED + 1 (api.py)
+    base = prng.key(SEED + 1, DEVICE)
+    ids = torch.arange(CHAINS, device=DEVICE)
+    theta0 = 2.0 * prng.normal(prng.fold_in(base, 0xFFFFFFFF), (CHAINS, dim),
+                               torch.float32)
+    mass = nutpie_init_mass(logp_grad(theta0)[1],
+                            torch.tensor(1e-5, device=DEVICE))
+    step0 = adapt_step_size(prng.fold_in(base, ids + CHAINS), logp_grad, theta0,
+                            mass, torch.ones(CHAINS, device=DEVICE))
+    ws = init_warmup_state(prng.fold_in(base, ids), theta0, mass, step0, wcfg, scfg)
+    t0 = time.perf_counter()
+    ws, _, _, winfo = run_warmup(logp_grad, ws, wcfg, scfg, tier2_every=12)
+    print(f"[fused route] run_warmup {warmup} iterations: "
+          f"{time.perf_counter() - t0:.3f} s  [{card}]")
+    params, ss = freeze_params(ws), init_sample_state(ws)
+
+    routes = {}
+    for name in order:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, d, _, info = run_sampling(logp_grad, ss, params, scfg,
+                                     pallas_pass=name == "fused")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        routes[name] = (d.cpu().numpy(), launches)
+        print(f"[fused route] sampling, {name} pass: wall {wall:.3f} s, "
+              f"{info.n_inner_trips['sampling']} trips, "
+              f"{info.n_outer_trips['sampling']} tier-2 passes, "
+              f"{info.n_syncs['sampling']} syncs; launches {json.dumps(launches)}"
+              f"  [{card}]")
+    launches = routes["fused"][1]
+    if launches["fused_pass"] <= 0:
+        raise AssertionError("the fused route never launched fused_pass")
+    if launches["replay_split_chain"] != 0:
+        raise AssertionError("the fused route launched the separate replay")
+    d_u, d_f = routes["unfused"][0], routes["fused"][0]
+    same = np.all(d_u == d_f, axis=-1)
+    print(f"[fused route] draws bitwise equal between the routes: "
+          f"{same.mean():.4f} of {same.size}; largest difference "
+          f"{np.abs(d_u - d_f).max():.3e} (reported only)  [{card}]")
+    check_posterior(d_f, "fused route", card, ref)
     return launches
 
 
@@ -268,6 +544,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler window and print kernel times")
+    parser.add_argument("--ab", action="store_true",
+                        help="sample the fused route's warmed state four times, "
+                        "unfused, fused, fused, unfused")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -276,9 +555,15 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
+    from walnuts_tpu_torch.models.targets import logistic_regression_data
     from walnuts_tpu_torch.ops import _cuda
 
-    for name in ("replay", "logreg"):
+    names = ("replay", "logreg", "fused_pass")
+    t0 = time.perf_counter()
+    _cuda.build(*names)
+    print(f"[build] {len(names)} libraries, one nvcc each in parallel: "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in names:
         _cuda.library(name)
         b = _cuda.BUILD_INFO[name]
         print(f"[build] {name}: {b['seconds']:.2f} s -> {b['path']}")
@@ -286,15 +571,20 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
-    kernels = [check_replay(card), check_logreg(card)]
-    launches = run_main_path(card)
+    kernels = [check_replay(card), check_logreg(card), check_fused_pass(card, DIM)]
+    check_fused_pass(card, 101)
+    ref = laplace(*logistic_regression_data(ROWS, DIM))
+    launches = run_main_path(card, ref)
+    order = ("unfused", "fused", "fused", "unfused") if args.ab else ("unfused", "fused")
+    launches["fused_pass"] = run_fused_route(card, ref, order=order)["fused_pass"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if args.profile:
         profile_window(card)
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
-                                 "launches", "max_abs_err", "ms", "plain_ms")}
+                                 "launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}
         for k in kernels
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,15 +7,32 @@ tests/test_torch_gpu.py -q`` (``--noconftest`` keeps the suite's JAX setup
 out). The replay kernel is integer arithmetic and must be bitwise equal;
 the logistic-regression kernel sums in another order than the plain
 version's matrix products, so it is held to ``tests/test_pallas.py``'s
-float32 tolerances.
+float32 tolerances. The fused tier-2 pass kernel is held to its plain
+version on the same synthetic lane states: integers, flags and keys equal
+on every lane; rows to a few ulp (the restart's normals run the same
+polynomial, rounded step by step on both sides); per-lane floats to rtol
+1e-5 / atol 1e-4 in float32 (1e-10 in float64), because the momentum
+energy of a restart is a warp sum in the kernel and PyTorch's reduction in
+the plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from walnuts_tpu_torch.convert import key_data_torch, logreg_tensors
+from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
+from walnuts_tpu_torch.convert import (
+    key_data_torch,
+    lane_state_from_fields,
+    logreg_tensors,
+)
+from walnuts_tpu_torch.core.sampler import (
+    freeze_params,
+    init_sample_state,
+    init_warmup_state,
+)
 from walnuts_tpu_torch.models.targets import logistic_regression_data
+from walnuts_tpu_torch.ops import fused_pass as fp
 from walnuts_tpu_torch.ops import prng
 from walnuts_tpu_torch.ops.logreg_fused import (
     logistic_regression_fused,
@@ -110,3 +127,91 @@ def test_fused_model_on_the_card_is_a_float32_island(cuda):
     lp, g = fused(theta)
     assert lp.dtype == torch.float64 and g.device.type == "cuda"
     assert torch.isfinite(lp).all() and torch.isfinite(g).all()
+
+
+def _pass_inputs(c, d, max_depth, r, seed, device, dtype):
+    fields, p = fp.synthetic_pass_inputs(c, d, max_depth, r, seed)
+    st = lane_state_from_fields(fields, dtype, device)
+    step = torch.tensor(p["step"], dtype=dtype, device=device)
+    inv_mass = torch.tensor(p["inv_mass"], dtype=dtype, device=device)
+    min_micro = torch.tensor(p["min_micro"], device=device)
+    out = (torch.zeros((r, c, d), dtype=dtype, device=device),
+           torch.zeros((r, c), dtype=dtype, device=device),
+           torch.zeros((r, c), dtype=torch.int32, device=device))
+    return st, (step, inv_mass, min_micro), out
+
+
+@pytest.mark.parametrize(
+    "c,d,dtype",
+    [(c, d, torch.float32) for c in (1, 100, 4096) for d in (25, 101)]
+    + [(100, d, torch.float64) for d in (25, 101)])
+def test_fused_pass_kernel_vs_plain(cuda, c, d, dtype):
+    max_depth, r, cap = 5, 6, 5
+    seed = c + d
+    st_k, params, out_k = _pass_inputs(c, d, max_depth, r, seed, cuda, dtype)
+    st_p, _, out_p = _pass_inputs(c, d, max_depth, r, seed, cuda, dtype)
+    before = fp.fused_pass.launches
+    fp.fused_pass(st_k, *params, cap, r, max_depth, out_k)
+    torch.cuda.synchronize()
+    assert fp.fused_pass.launches == before + 1
+    fp.fused_pass_plain(st_p, *params, cap, r, max_depth, out_p)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    row_tol = dict(rtol=2e-6, atol=1e-6) if f32 else dict(rtol=1e-12, atol=1e-12)
+    lane_tol = dict(rtol=1e-5, atol=1e-4) if f32 else dict(rtol=1e-10, atol=1e-10)
+    for name in fp.RW_FIELDS:
+        k = fp.lane_field(st_k, name).cpu().numpy()
+        p = fp.lane_field(st_p, name).cpu().numpy()
+        if k.dtype.kind != "f":
+            np.testing.assert_array_equal(k, p, err_msg=name)
+        else:
+            tol = lane_tol if k.ndim == 1 else row_tol
+            np.testing.assert_allclose(k, p, err_msg=name, **tol)
+    # the banked draws, log densities and depths
+    np.testing.assert_array_equal(out_k[2].cpu().numpy(), out_p[2].cpu().numpy())
+    np.testing.assert_allclose(out_k[0].cpu().numpy(), out_p[0].cpu().numpy(),
+                               **row_tol)
+    np.testing.assert_allclose(out_k[1].cpu().numpy(), out_p[1].cpu().numpy(),
+                               **lane_tol)
+    if c > 1:
+        assert (out_k[2].cpu().numpy() > 0).any()  # some lanes banked
+
+
+def test_fused_pass_kernel_refuses_bad_input(cuda):
+    st, (step, im, mm), out = _pass_inputs(8, 25, 5, 6, 1, cuda, torch.float32)
+    with pytest.raises(ValueError, match="inv_mass"):
+        fp.fused_pass(st, step, im.double(), mm, 5, 6, 5, out)
+    with pytest.raises(ValueError, match="step"):
+        fp.fused_pass(st, step.cpu(), im, mm, 5, 6, 5, out)
+    with pytest.raises(ValueError, match="share memory"):
+        fp.fused_pass(st._replace(cur_th=st.ms_th), step, im, mm, 5, 6, 5, out)
+    with pytest.raises(ValueError, match="draws"):
+        fp.fused_pass(st, step, im, mm, 5, 7, 5, out)  # R disagrees with out
+
+
+def test_run_sampling_fused_route_on_card(cuda):
+    """Both routes of run_sampling on the card from one state: the fused
+    route launches the kernel once per tier-2 pass and gives finite draws
+    (a few chains may part ways with the unfused route through summation
+    order, so the two are not compared)."""
+    from walnuts_tpu_torch.models import funnel
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    c, dim = 256, 11
+    lg = make_logp_grad(funnel(dim)[0])
+    wcfg = WarmupConfig(min_iter=0, max_iter=0, block_size=10)
+    scfg = SamplingConfig(min_iter=20, max_iter=20, block_size=10,
+                          max_step_halvings=6)
+    keys = prng.fold_in(prng.key(3, cuda), torch.arange(c, device=cuda))
+    theta = prng.normal(prng.key(4, cuda), (c, dim), torch.float32)
+    ws = init_warmup_state(keys, theta, torch.ones_like(theta),
+                           torch.full((c,), 0.3, device=cuda), wcfg, scfg)
+    params, ss = freeze_params(ws), init_sample_state(ws)
+    before = fp.fused_pass.launches
+    _, d_f, l_f, info = run_sampling(lg, ss, params, scfg, pallas_pass=True)
+    torch.cuda.synchronize()
+    assert fp.fused_pass.launches - before == info.n_outer_trips["sampling"] > 0
+    _, d_u, _, _ = run_sampling(lg, ss, params, scfg)
+    assert d_f.shape == d_u.shape == (20, c, dim)
+    assert torch.isfinite(d_f).all() and torch.isfinite(l_f).all()

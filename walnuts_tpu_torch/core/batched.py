@@ -25,12 +25,14 @@ What changes in PyTorch:
   splits with one replay entry point (``ops.prng.replay_split_chain``,
   whose tensor's device picks the plain version or the CUDA kernel), the
   static form of the tier-2 sweeps, no ``bf16_ends`` / ``fresh_cur`` /
-  ``min_latched`` / fused pass.
+  ``min_latched``. ``pallas_pass=True`` runs each sampling pass as one
+  launch of the fused-pass kernel (``ops.fused_pass``); the pass's
+  arithmetic (``ops.fused_pass.leaf_apply``) is shared by both routes.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,20 +42,19 @@ from walnuts_tpu_torch.core.adapt import (
     adam_step_size,
     adam_update,
     mass_estimator_inv_mass,
-    mass_estimator_observe,
     min_micro_estimate,
-    min_micro_observe,
     tree_where,
 )
 from walnuts_tpu_torch.core.transition import _PH_FWD, _PH_REV, FailStats
 from walnuts_tpu_torch.ops import prng
-from walnuts_tpu_torch.ops.math import (
-    LogpGradFn,
-    count_trailing_zeros,
-    leapfrog_step,
-    log_sum_exp,
-    logp_momentum,
+from walnuts_tpu_torch.ops.fused_pass import (
+    bank_draws,
+    fresh_trajectory,
+    fused_pass,
+    leaf_apply,
+    own_storage,
 )
+from walnuts_tpu_torch.ops.math import LogpGradFn, leapfrog_step, logp_momentum
 
 
 class LaneState(NamedTuple):
@@ -142,6 +143,8 @@ def make_batched_sample_block(
     runahead: int = 8,
     tier2_every: int = 6,
     adapt_full: bool = False,
+    pallas_pass: bool = False,
+    pass_tile: Optional[int] = None,
 ):
     """Build ``(start_block, sample_block)`` for batched-native sampling
     (the reference's factory of the same name, default configuration).
@@ -161,36 +164,31 @@ def make_batched_sample_block(
     ``sample_block.adapt(state, aux, max_error, num_draws, out=None)``
     returns ``(BatchedBlockResult, LaneState, aux')`` with ``aux = (mass,
     mm_est, iteration, inv_mass, step, min_micro)``.
+
+    ``pallas_pass=True`` runs every tier-2 pass of the sampling block as
+    one call of ``ops.fused_pass.fused_pass``: the CUDA kernel for CUDA
+    tensors (``pass_tile`` chains per CUDA block, default 8), its plain
+    version for CPU tensors. The draws are the unfused pass's. Sampling
+    only, as in the reference: with ``adapt_full`` it raises.
     """
+    if pallas_pass and adapt_full:
+        raise ValueError(
+            "pallas_pass=True covers the sampling configuration only (no "
+            "adapt_full); warmup uses the unfused tier-2 pass")
     n_slots = max(max_depth - 1, 1)
     B = max(int(runahead), 1)
     K = int(tier2_every)
-
-    def _fresh_trajectory(key, theta, logp0, step, inv_mass):
-        """One 3-way key split, momentum ~ N(0, M) and the direction bit
-        per lane (``transition_w`` entry, walnuts.hpp:528-535)."""
-        dtype = theta.dtype
-        ks = prng.split(key, 3)
-        # subkeys 1 (momentum) and 2 (direction) hashed in one threefry:
-        # the direction bit is the uniform of subkey 2's counter 0
-        x0, x1 = prng.counter_bits(ks[:, 1:], theta.shape[1:])
-        z = prng.normal_from_bits(x0[:, 0], x1[:, 0], dtype)
-        rho0 = z / torch.sqrt(inv_mass)
-        joint0 = logp0 + logp_momentum(rho0, inv_mass)
-        forward0 = prng.uniform_from_bits(x0[:, 1, 0], x1[:, 1, 0], dtype) < 0.5
-        dt0 = torch.where(forward0, step, -step)
-        return ks[:, 0].contiguous(), rho0, joint0, forward0, dt0
 
     def _lane_state(key, theta, logp0, grad0, step, inv_mass, min_micro,
                     adam, n_grads, fails):
         """Batched LaneState from a start point with known logp/grad."""
         C, D = theta.shape
         dev = theta.device
-        knew, rho0, joint0, forward0, dt0 = _fresh_trajectory(
+        knew, rho0, joint0, forward0, dt0 = fresh_trajectory(
             key, theta, logp0, step, inv_mass)
         i32 = lambda v: torch.full((C,), v, dtype=torch.int32, device=dev)
         false = lambda: torch.zeros((C,), dtype=torch.bool, device=dev)
-        return LaneState(
+        st = LaneState(
             key=knew, depth=i32(1), out_depth=i32(max_depth + 1),
             acc_th_bk=theta, acc_rho_bk=rho0, acc_th_fw=theta,
             acc_rho_fw=rho0, acc_th_sel=theta,
@@ -213,6 +211,8 @@ def make_batched_sample_block(
             n_ends=i32(0), leaf_end_at=i32(0),
             adam=adam, n_grads=n_grads, fails=fails, draws_done=i32(0),
         )
+        # the fused pass writes in place: no field may share storage
+        return own_storage(st) if pallas_pass else st
 
     def start_block(key, theta, n_grads, fails, step, inv_mass, min_micro,
                     adam=None):
@@ -325,232 +325,6 @@ def make_batched_sample_block(
             n_grads=n_grads, fails=fails,
         )
 
-    # ------------------------------------------------------------------
-    # tier 2: leaf-level orbit bookkeeping for every latched lane, plus
-    # the deferred-split replay, banking values and trajectory restart
-    # ------------------------------------------------------------------
-    def leaf_apply(s: LaneState, active, step, inv_mass, min_micro,
-                   block_draws: int, aux=None):
-        jdtype = s.ms_joint.dtype
-        dev = s.run_sel.device
-        pend = active & s.leaf_done
-        fwd_th, fwd_rho, fwd_grad = s.fwd_th, s.fwd_rho, s.fwd_grad
-        fwd_joint, fwd_logp_pos = s.fwd_joint, s.fwd_logp_pos
-        leaf_ok = pend & s.leaf_ok
-        leaf_fail = pend & ~s.leaf_ok
-
-        sgn = torch.where(s.forward, 1.0, -1.0).to(s.run_sel.dtype)
-
-        def uturn_end(old_th, old_rho):
-            delta = _r(sgn) * inv_mass * (fwd_th - old_th)
-            return ((torch.sum(fwd_rho * delta, -1) < 0)
-                    | (torch.sum(old_rho * delta, -1) < 0))
-
-        # merge cascade: sub-U-turn checks against the stacked older-side
-        # endpoints (build_span, walnuts.hpp:490-494); a leaf's merge count
-        # is the trailing-zero count of its 1-based index
-        n_merges = count_trailing_zeros(s.leaf_idx + 1)
-        cur_end = torch.stack([fwd_th, fwd_rho], dim=1)
-        ok = torch.ones_like(leaf_ok)
-        for i in range(n_slots):
-            do = leaf_ok & (i < n_merges) & ok
-            slot = s.stack_e[:, i]
-            ut = uturn_end(slot[:, 0], slot[:, 1])
-            cur_end = torch.where(do[:, None, None], slot, cur_end)
-            ok = ok & ~(do & ut)
-        sub_uturn = leaf_ok & ~ok
-        leaf_ok = leaf_ok & ok
-
-        # deferred key-split replay: the plain version or the CUDA kernel
-        key_r, ku = prng.replay_split_chain(s.key, s.ku, s.n_ends,
-                                            s.leaf_end_at)
-        s = s._replace(key=key_r, ku=ku,
-                       n_ends=torch.zeros_like(s.n_ends),
-                       leaf_end_at=torch.zeros_like(s.leaf_end_at))
-        # the three leaf uniforms, from the resolving leaf's subkey
-        unifs = prng.uniform(ku, (3,), s.run_sel.dtype)
-
-        new_leaf_idx = s.leaf_idx + 1
-        subtree_done = leaf_ok & (new_leaf_idx >= s.n_leaves)
-        push = leaf_ok & ~subtree_done
-        # stack push: lane i writes slot n_merges[i]
-        slots = torch.arange(n_slots, device=dev, dtype=torch.int32)
-        write_mask = push[:, None] & (n_merges[:, None] == slots[None, :])
-        stack_e = torch.where(write_mask[:, :, None, None], cur_end[:, None],
-                              s.stack_e)
-
-        # reservoir (streaming Barker)
-        run_logw_new = log_sum_exp(s.run_logw, fwd_joint)
-        take_leaf = torch.log(unifs[:, 0]) < fwd_joint - run_logw_new
-        upd = leaf_ok & take_leaf
-
-        # top-level Metropolis + combined U-turn on subtree completion
-        fw1 = _r(s.forward)
-        acc_old_th = torch.where(fw1, s.acc_th_bk, s.acc_th_fw)
-        acc_old_rho = torch.where(fw1, s.acc_rho_bk, s.acc_rho_fw)
-        ut_top = uturn_end(acc_old_th, acc_old_rho)
-        take_new = torch.log(unifs[:, 1]) < run_logw_new - s.acc_logw
-        upd_fw = subtree_done & s.forward
-        upd_bk = subtree_done & ~s.forward
-        take = subtree_done & take_new
-        end_uturn = subtree_done & ut_top
-        new_depth = s.depth + 1
-        deeper = subtree_done & ~ut_top & (new_depth <= max_depth)
-        exhausted = subtree_done & ~ut_top & (new_depth > max_depth)
-
-        fail = leaf_fail | sub_uturn
-        complete = fail | end_uturn | exhausted
-        out_depth = torch.where(
-            fail | end_uturn, s.depth,
-            torch.where(exhausted, torch.full_like(s.depth, max_depth + 1),
-                        s.out_depth))
-
-        # run-selection values after this leaf (pre-restart)
-        run_sel_v = torch.where(_r(upd), fwd_th, s.run_sel)
-        run_sel_logp_v = torch.where(upd, fwd_logp_pos, s.run_sel_logp)
-        run_sel_grad_v = torch.where(_r(upd), fwd_grad, s.run_sel_grad)
-
-        # emitted draw values (the selected state of the combined orbit)
-        sel_theta = torch.where(_r(take), run_sel_v, s.acc_th_sel)
-        sel_logp = torch.where(take, run_sel_logp_v, s.acc_lp_sel)
-        sel_grad = torch.where(_r(take), run_sel_grad_v, s.acc_grad_sel)
-
-        new_draws_done = s.draws_done + complete.to(torch.int32)
-        # restart on completion, except at the block end: the lane's key
-        # must equal the end-of-draw key so the next block continues the
-        # same per-chain stream
-        restart = complete & (new_draws_done < block_draws)
-        r1 = _r(restart)
-
-        if adapt_full:
-            # per-lane warmup adaptation at the lane's own draw boundary
-            # (AdaptiveWalnuts::operator(), adaptive_walnuts.hpp:234-251)
-            mass, mm_est, iteration = aux
-            mass = tree_where(
-                complete,
-                mass_estimator_observe(mass, sel_theta, sel_grad, iteration),
-                mass)
-            mm_est = tree_where(
-                complete,
-                min_micro_observe(mm_est, torch.ones_like(out_depth) << out_depth),
-                mm_est)
-            iteration = iteration + complete.to(torch.int32)
-            step_next = torch.where(restart, adam_step_size(s.adam), step)
-            inv_mass_next = torch.where(r1, mass_estimator_inv_mass(mass),
-                                        inv_mass)
-            min_micro_next = torch.where(restart, min_micro_estimate(mm_est),
-                                         min_micro)
-            aux = (mass, mm_est, iteration, inv_mass_next, step_next,
-                   min_micro_next)
-        else:
-            step_next, inv_mass_next, min_micro_next = step, inv_mass, min_micro
-
-        knew, rho0, joint0, forward0, dt0 = _fresh_trajectory(
-            s.key, sel_theta, sel_logp, step_next, inv_mass_next)
-
-        cont_m = pend & ~complete
-
-        # single-pass merged field writes (restart / continue / unchanged)
-        new_dir = torch.where(restart, forward0,
-                              torch.where(deeper, unifs[:, 2] < 0.5, s.forward))
-        nd1, ufw1, ubk1, tk1 = _r(new_dir), _r(upd_fw), _r(upd_bk), _r(take)
-        acc_grad_fw = torch.where(r1, sel_grad,
-                                  torch.where(ufw1, fwd_grad, s.acc_grad_fw))
-        acc_grad_bk = torch.where(r1, sel_grad,
-                                  torch.where(ubk1, fwd_grad, s.acc_grad_bk))
-        acc_grad_sel = torch.where(r1, sel_grad,
-                                   torch.where(tk1, sel_grad, s.acc_grad_sel))
-        acc_th_bk = torch.where(r1, sel_theta,
-                                torch.where(ubk1, fwd_th, s.acc_th_bk))
-        acc_rho_bk = torch.where(r1, rho0,
-                                 torch.where(ubk1, fwd_rho, s.acc_rho_bk))
-        acc_th_fw = torch.where(r1, sel_theta,
-                                torch.where(ufw1, fwd_th, s.acc_th_fw))
-        acc_rho_fw = torch.where(r1, rho0,
-                                 torch.where(ufw1, fwd_rho, s.acc_rho_fw))
-        acc_th_sel = torch.where(r1, sel_theta,
-                                 torch.where(tk1, sel_theta, s.acc_th_sel))
-        acc_jt_bk = torch.where(restart, joint0,
-                                torch.where(upd_bk, fwd_joint, s.acc_jt_bk))
-        acc_jt_fw = torch.where(restart, joint0,
-                                torch.where(upd_fw, fwd_joint, s.acc_jt_fw))
-        acc_lp_sel = torch.where(restart, sel_logp,
-                                 torch.where(take, sel_logp, s.acc_lp_sel))
-        acc_logw = torch.where(
-            restart, joint0,
-            torch.where(subtree_done, log_sum_exp(s.acc_logw, run_logw_new),
-                        s.acc_logw))
-
-        # leaf start for continuing lanes: the orbit endpoint in the new
-        # direction on a new doubling, this leaf's endpoint on a push
-        acc_end_th = torch.where(nd1, acc_th_fw, acc_th_bk)
-        acc_end_rho = torch.where(nd1, acc_rho_fw, acc_rho_bk)
-        acc_end_grad = torch.where(nd1, acc_grad_fw, acc_grad_bk)
-        acc_end_joint = torch.where(new_dir, acc_jt_fw, acc_jt_bk)
-        d1m, p1m = _r(deeper), _r(push)
-        ms_th = torch.where(r1, sel_theta, torch.where(
-            d1m, acc_end_th, torch.where(p1m, fwd_th, s.ms_th)))
-        ms_rho = torch.where(r1, rho0, torch.where(
-            d1m, acc_end_rho, torch.where(p1m, fwd_rho, s.ms_rho)))
-        ms_grad = torch.where(r1, sel_grad, torch.where(
-            d1m, acc_end_grad, torch.where(p1m, fwd_grad, s.ms_grad)))
-        ms_joint = torch.where(restart, joint0, torch.where(
-            deeper, acc_end_joint, torch.where(push, fwd_joint, s.ms_joint)))
-        rc = restart | cont_m
-        rc1m = _r(rc)
-        zero_i = torch.zeros_like(s.depth)
-        one_i = torch.ones_like(s.depth)
-
-        s = s._replace(
-            key=torch.where(r1, knew, s.key),
-            depth=torch.where(restart, one_i,
-                              torch.where(deeper, new_depth, s.depth)),
-            out_depth=torch.where(restart,
-                                  torch.full_like(out_depth, max_depth + 1),
-                                  out_depth),
-            acc_th_bk=acc_th_bk, acc_rho_bk=acc_rho_bk,
-            acc_th_fw=acc_th_fw, acc_rho_fw=acc_rho_fw,
-            acc_th_sel=acc_th_sel,
-            acc_jt_bk=acc_jt_bk, acc_jt_fw=acc_jt_fw,
-            acc_lp_sel=acc_lp_sel, acc_logw=acc_logw,
-            acc_grad_bk=acc_grad_bk, acc_grad_fw=acc_grad_fw,
-            acc_grad_sel=acc_grad_sel,
-            forward=new_dir,
-            leaf_idx=torch.where(restart | deeper, zero_i,
-                                 torch.where(leaf_ok, new_leaf_idx, s.leaf_idx)),
-            n_leaves=torch.where(restart, one_i, torch.where(
-                deeper, one_i << (new_depth - 1), s.n_leaves)),
-            stack_e=stack_e,
-            run_sel=torch.where(r1, sel_theta, run_sel_v),
-            run_sel_logp=torch.where(restart, sel_logp, run_sel_logp_v),
-            run_sel_grad=torch.where(r1, sel_grad, run_sel_grad_v),
-            run_logw=torch.where(
-                restart | deeper,
-                torch.full_like(s.run_logw, float("-inf"), dtype=jdtype),
-                torch.where(leaf_ok, run_logw_new, s.run_logw)),
-            ms_th=ms_th, ms_rho=ms_rho, ms_grad=ms_grad, ms_joint=ms_joint,
-            halvings=torch.where(rc, zero_i, s.halvings),
-            dt=torch.where(restart, dt0, torch.where(
-                cont_m, torch.where(new_dir, step, -step), s.dt)),
-            steps_done=torch.where(rc, zero_i, s.steps_done),
-            # restarting lanes take the (possibly just adapted) next-draw
-            # min_micro; continuing lanes keep the current draw's
-            steps_total=torch.where(restart, min_micro_next, torch.where(
-                cont_m, min_micro, s.steps_total)),
-            phase=torch.where(rc, torch.full_like(s.phase, _PH_FWD), s.phase),
-            cur_th=torch.where(rc1m, ms_th, s.cur_th),
-            cur_rho=torch.where(rc1m, ms_rho, s.cur_rho),
-            cur_grad=torch.where(rc1m, ms_grad, s.cur_grad),
-            lp_cur=torch.where(restart, sel_logp, s.lp_cur),
-            leaf_done=s.leaf_done & ~pend,
-            leaf_ok=s.leaf_ok & ~pend,
-            fails=s.fails._replace(
-                n_depth_exhausted=s.fails.n_depth_exhausted
-                + exhausted.to(torch.int32)),
-            draws_done=new_draws_done,
-        )
-        return s, complete, sel_theta, sel_logp, out_depth, new_draws_done - 1, aux
-
     def _run(state: LaneState, aux, step, inv_mass, min_micro, max_error,
              num_draws: int, out):
         """The block loop shared by sampling (``aux`` None) and warmup."""
@@ -563,8 +337,8 @@ def make_batched_sample_block(
         else:
             draws, logps = out
         depths = torch.empty((R, C), dtype=torch.int32, device=dev)
-        lanes = torch.arange(C, device=dev)
-        n_grads0, fails0 = state.n_grads, state.fails
+        # a copy: the fused pass updates n_depth_exhausted in place
+        n_grads0, fails0 = state.n_grads, FailStats(*(f.clone() for f in state.fails))
         n_inner = n_outer = n_syncs = 0
         for r in range(R):
             cap = min(R, r + B)
@@ -584,18 +358,19 @@ def make_batched_sample_block(
                                        min_micro, max_error)
                     n_inner += 1
                 n_outer += 1
+                if pallas_pass:  # one launch: the pass and banking, in place
+                    fused_pass(state, step, inv_mass, min_micro, cap, R,
+                               max_depth, (draws, logps, depths),
+                               pass_tile=pass_tile)
+                    continue
                 state, complete, sel_theta, sel_logp, out_depth, bank_idx, aux = (
                     leaf_apply(state, active, step, inv_mass, min_micro, R,
+                               max_depth=max_depth,
+                               replay=prng.replay_split_chain,
                                aux=None if aux is None else aux[:3]))
-                # bank completed draws in place at their draw index; other
-                # lanes write their row back unchanged
-                idx = bank_idx.clamp(0, R - 1).long()
-                draws[idx, lanes] = torch.where(_r(complete), sel_theta,
-                                                draws[idx, lanes])
-                logps[idx, lanes] = torch.where(complete, sel_logp,
-                                                logps[idx, lanes])
-                depths[idx, lanes] = torch.where(complete, out_depth,
-                                                 depths[idx, lanes])
+                # bank completed draws in place at their draw index
+                bank_draws((draws, logps, depths), complete, sel_theta,
+                           sel_logp, out_depth, bank_idx)
         res = BatchedBlockResult(
             draws=draws, logps=logps, depths=depths, key=state.key,
             # the block's own work: excludes start_block's evaluation

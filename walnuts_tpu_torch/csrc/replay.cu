@@ -26,32 +26,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rots[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rots[i & 1][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  o0 = x0;
-  o1 = x1;
-}
+using wt::threefry2x32;
 
 __global__ void replay_kernel(const uint32_t* __restrict__ key,
                               const uint32_t* __restrict__ ku,

@@ -2,8 +2,9 @@
 
 Each source is compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
-``ctypes``. The library name carries a hash of the source and the flags, so
-an edited kernel is rebuilt and an unchanged one is reused. Libraries go to
+``ctypes``. The library name carries a hash of the source, of every header
+it includes from ``csrc/``, and of the flags, so an edited kernel or header
+is rebuilt and an unchanged one is reused. Libraries go to
 ``build/walnuts_tpu_torch/`` beside the package. Nothing here runs at
 import time: this module is imported on machines without ``nvcc``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +28,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# flags beyond NVCC_FLAGS, per library: the fused pass draws normals through
+# threefry.cuh's polynomials, which must round each product as PyTorch does
+_EXTRA_FLAGS = {"fused_pass": ("-fmad=false",)}
+
 # C entry points: every pointer, and the stream, as c_void_p
 _SIGNATURES = {
     "replay": {
@@ -35,6 +41,11 @@ _SIGNATURES = {
     "logreg": {
         "wt_logreg_value_grad": [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
+    "fused_pass": {
+        # the address of a FusedPassArgs struct (ops/fused_pass.py), stream
+        "wt_fused_pass": [ctypes.c_void_p, ctypes.c_void_p],
+        "wt_fused_pass_args_size": [],
     },
 }
 
@@ -58,37 +69,75 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list:
+    """``src`` and every file it includes with quotes, recursively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
+def _target(name: str):
+    """Source, flags and library path of ``csrc/<name>.cu``."""
+    src = _CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + _EXTRA_FLAGS.get(name, ())
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return src, flags, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+_BUILT: dict = {}  # name -> (seconds, nvcc's stderr) of a build in this process
+
+
+def build(*names: str) -> None:
+    """Compile the libraries of ``names`` that are not built yet: one
+    ``nvcc`` process per source, all started at once, then waited for."""
+    jobs = []
+    for name in names:
+        src, flags, out = _target(name)
+        if name in _LIBRARIES or out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *flags, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    errors = []
+    for name, src, out, tmp, proc, t0 in jobs:
+        stdout, stderr = proc.communicate()
+        try:
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                              f"{stdout}\n{stderr}")
+            else:
+                os.replace(tmp, out)  # atomic: concurrent builds agree
+                _BUILT[name] = (time.perf_counter() - t0, stderr)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     lib = _LIBRARIES.get(name)
     if lib is not None:
         return lib
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, out)  # atomic: concurrent builds agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        seconds, log = time.perf_counter() - t0, proc.stderr
+    build(name)
+    _, _, out = _target(name)
+    seconds, log = _BUILT.get(name, (0.0, ""))
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
@@ -105,4 +154,4 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
 
 
-__all__ = ["BUILD_DIR", "BUILD_INFO", "check", "library"]
+__all__ = ["BUILD_DIR", "BUILD_INFO", "build", "check", "library"]

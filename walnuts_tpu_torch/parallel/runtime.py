@@ -195,6 +195,8 @@ def run_sampling(
     on_r_hat=None,
     runahead: int = 8,
     tier2_every: int = 6,
+    pallas_pass: bool = False,
+    pass_tile: Optional[int] = None,
 ) -> Tuple[SampleState, torch.Tensor, torch.Tensor, RunInfo]:
     """Fixed-parameter sampling with R-hat early stopping.
 
@@ -202,6 +204,11 @@ def run_sampling(
     densities ``(iters, C)`` — slices of one tensor preallocated on the
     state's device for ``max_iter`` draws and filled in place block by
     block — and the run info.
+
+    ``pallas_pass=True`` runs each tier-2 pass as one launch of the fused
+    pass kernel (CUDA tensors; the plain version on the CPU) with
+    ``pass_tile`` chains per CUDA block; the chains are the unfused
+    pass's. Off by default, as in the reference.
     """
     start_blk, sample_blk = make_batched_sample_block(
         logp_grad,
@@ -209,6 +216,8 @@ def run_sampling(
         sampling_cfg.max_step_halvings,
         runahead=runahead,
         tier2_every=tier2_every,
+        pallas_pass=pallas_pass,
+        pass_tile=pass_tile,
     )
     info = info or RunInfo()
     dev = state.theta.device
