@@ -2,16 +2,21 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version at the main path's shapes, then drives two paths of the port on
-batched adaptive WALNUTS for the 25-coefficient logistic regression (1000
-rows) with the fused model kernel, 4096 chains, float32:
+version at the main path's shapes, then drives three paths of the port on
+adaptive WALNUTS for the 25-coefficient logistic regression (1000 rows)
+with the fused model kernel, 4096 chains, float32:
 
-- the main path, ``walnuts_tpu_torch.walnuts`` (100 warmup + 100 sampling
-  iterations): the replay and logistic-regression kernels must run on it;
+- the main path, ``walnuts_tpu_torch.walnuts`` (batched scheduler, 50
+  warmup + 50 sampling iterations): the replay and logistic-regression
+  kernels must run on it;
 - the fused route: ``run_warmup`` (50 iterations), then ``run_sampling``
-  (100 iterations) twice from the same warmed state, with the unfused
+  (50 iterations) twice from the same warmed state, with the unfused
   tier-2 pass and with ``pallas_pass=True``: the fused-pass kernel must
-  run on the second.
+  run on the second;
+- the classic path: ``walnuts(batched=False, integrator=...)`` (30 + 30
+  iterations) with the fused leapfrog integrator, which must launch once
+  per attempt; then 20 classic sampling iterations from the fused route's
+  warmed state with the kernel and with the plain integrator, for an A/B.
 
 Each path's draws must be finite, and their pooled posterior mean and sd
 must agree with NumPy references (a Newton MAP, its Laplace sd, and the
@@ -25,7 +30,8 @@ times, unfused, fused, fused, unfused, for an A/B of the two passes. Any
 failed phase raises (non-zero exit). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
 route, launches on its path, error against its plain version, times and
-bound.
+bound (the integrator's with its logistic-regression body; its three other
+bodies are checked and printed on earlier lines).
 """
 
 from __future__ import annotations
@@ -47,6 +53,11 @@ DEVICE = "cuda"
 # start in the far tail can stay stuck through 100 warmup iterations, in
 # the reference as in the port
 HALVINGS = 8
+# warmup and sampling iterations of the main path and of the classic path,
+# and sampling iterations of each run of the fused route
+MAIN_ITERS = 50
+CLASSIC_ITERS = 30
+ROUTE_ITERS = 50
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
 # tensor cores (also taken as the integer ALU rate, which the guide's table
 # does not list)
@@ -316,6 +327,95 @@ def check_fused_pass(card: str, dim: int) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+# per body of the integrator: the model's factory, the scales of the
+# synthetic attempt (synthetic_attempt_inputs), the tolerance against
+# integrate_plain after up to 256 steps, and the float operations of one
+# model evaluation beyond the leapfrog's 7 D. The simple bodies repeat the
+# plain version's arithmetic (the library is built with -fmad=false) and
+# differ by the order of their feature sums; the logistic-regression body
+# sums its 1000-row products in another order than the plain version's
+# matrix products, and rho and grad reach the hundreds.
+INTEGRATOR_BODIES = {
+    "std_normal": dict(dim=100, scales={}, tol=dict(rtol=1e-4, atol=1e-4),
+                       ops=lambda d: 3 * d),
+    "ill_conditioned_normal": dict(dim=100, scales={},
+                                   tol=dict(rtol=1e-4, atol=1e-4),
+                                   ops=lambda d: 4 * d),
+    "funnel": dict(dim=101, scales=dict(theta_scale=0.5, dt_range=(0.01, 0.05)),
+                   tol=dict(rtol=1e-4, atol=1e-4), ops=lambda d: 4 * d + 20),
+    "logistic_regression": dict(
+        dim=DIM, scales=dict(theta_scale=0.3, inv_mass_scale=0.005,
+                             dt_range=(0.05, 0.2)),
+        tol=dict(rtol=1e-3, atol=5e-3), ops=lambda d: 4 * ROWS * d),
+}
+
+
+def _integrator_model(body: str):
+    from walnuts_tpu_torch.models import kernels
+
+    dim = INTEGRATOR_BODIES[body]["dim"]
+    if body == "std_normal":
+        return kernels.std_normal_vg(dim)
+    if body == "funnel":
+        return kernels.funnel_vg(dim)
+    if body == "ill_conditioned_normal":
+        return kernels.ill_conditioned_normal_vg(dim, device=DEVICE)
+    return kernels.logistic_regression_vg(ROWS, dim, device=DEVICE)
+
+
+def check_integrator(card: str, body: str) -> dict:
+    """One attempt of every chain, kernel against plain, at C = 4096 and
+    the body's width: n_steps in 0..256 with a tenth of the lanes at 0,
+    dt of both signs, per-chain inv_mass."""
+    from walnuts_tpu_torch.ops import integrator as integ
+
+    spec = INTEGRATOR_BODIES[body]
+    model = _integrator_model(body)
+    vg, dim, consts = model
+    inp = integ.synthetic_attempt_inputs(CHAINS, dim, SEED + 3, **spec["scales"])
+    args = integ.attempt_tensors(vg, inp, torch.float32, DEVICE)
+    fused = integ.make_fused_integrator(model)
+    cur_k, lp_k = fused(*args)
+    torch.cuda.synchronize()
+    cur_p, lp_p = integ.integrate_plain(vg, *args)
+    torch.cuda.synchronize()
+    if fused.launches != 1:
+        raise AssertionError(f"integrator[{body}]: {fused.launches} launches for one call")
+    zero = args[3] == 0
+    if not (torch.equal(cur_k[zero], args[0][zero])
+            and bool((lp_k[zero] == float("-inf")).all())):
+        raise AssertionError(f"integrator[{body}]: zero-step lanes were changed")
+    ck, cp, lk, lp_ = (t.cpu().numpy() for t in (cur_k, cur_p, lp_k[~zero], lp_p[~zero]))
+    np.testing.assert_allclose(ck, cp, **spec["tol"])
+    np.testing.assert_allclose(lk, lp_, **spec["tol"])
+    err = float(max(np.abs(ck - cp).max(), np.abs(lk - lp_).max()))
+    rel = float((np.abs(ck - cp).max(axis=(1, 2))
+                 / np.maximum(np.abs(cp).max(axis=(1, 2)), 1.0)).max())
+    ms = time_ms(lambda: fused(*args), reps=20, warmup=2)
+    plain_ms = time_ms(lambda: integ.integrate_plain(vg, *args), reps=3, warmup=1,
+                       lead=False)
+    steps = int(inp["n_steps"].sum())
+    # four (C, D) rows read, three written, dt, n_steps and lp per chain,
+    # the constants once; per chain and step the leapfrog's 7 D operations
+    # and the body's
+    # (of logistic regression's constants the kernel reads x and y, not xt)
+    read = consts[1:] if body == "logistic_regression" else consts
+    nbytes = 4.0 * (7 * CHAINS * dim + 3 * CHAINS + sum(c.numel() for c in read))
+    bound_ms, bound_by = bound(nbytes, float(steps) * (7 * dim + spec["ops"](dim)))
+    print(f"[integrator] {body}, D={dim}: kernel within rtol "
+          f"{spec['tol']['rtol']:g} atol {spec['tol']['atol']:g} of plain at "
+          f"C={CHAINS}, n_steps in [0, 256] ({steps} chain steps, "
+          f"{int(zero.sum())} zero-step lanes bitwise), dt of both signs: max "
+          f"abs err {err:.3e}, max err relative to the chain's largest entry "
+          f"{rel:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
+    return dict(name="integrator", route="cuda",
+                source="walnuts_tpu_torch/csrc/integrator.cu",
+                replaces="walnuts_tpu/ops/integrator.py:38",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def laplace(design: np.ndarray, y: np.ndarray):
     """Reference moments of the logistic-regression posterior (standard
     normal prior), in float64 NumPy: the Newton MAP, the Laplace sd
@@ -399,8 +499,8 @@ def run_main_path(card: str, ref) -> dict:
     out, info = wtt.walnuts(
         logp_grad, fused=True, num_params=dim, num_chains=CHAINS,
         dtype=torch.float32, seed=SEED, device=DEVICE,
-        min_warmup_iter=100, max_warmup_iter=100,
-        min_sampling_iter=100, max_sampling_iter=100,
+        min_warmup_iter=MAIN_ITERS, max_warmup_iter=MAIN_ITERS,
+        min_sampling_iter=MAIN_ITERS, max_sampling_iter=MAIN_ITERS,
         block_size=50, return_info=True, max_step_halvings=HALVINGS,
     )
     torch.cuda.synchronize()
@@ -412,8 +512,8 @@ def run_main_path(card: str, ref) -> dict:
             raise AssertionError(f"the main path never launched {name}")
 
     draws = np.stack([np.asarray(c) for c in out], axis=1)  # (R, C, D)
-    if draws.shape[0] != 100:
-        raise AssertionError(f"main path: {draws.shape[0]} draws, not 100")
+    if draws.shape[0] != MAIN_ITERS:
+        raise AssertionError(f"main path: {draws.shape[0]} draws, not {MAIN_ITERS}")
     check_posterior(draws, "main path", card, ref)
 
     from walnuts_tpu_torch import summary
@@ -424,7 +524,8 @@ def run_main_path(card: str, ref) -> dict:
     w_s, s_s = info.seconds["warmup"], info.seconds["sampling"]
     n_grads = float(np.sum(info.n_grads))
     print(f"[main path] logreg({DIM}) x {CHAINS} chains, fused, float32, "
-          f"100 + 100 iterations, block 50, max_step_halvings {HALVINGS}  [{card}]")
+          f"{MAIN_ITERS} + {MAIN_ITERS} iterations, block 50, "
+          f"max_step_halvings {HALVINGS}  [{card}]")
     print(f"[main path] wall {wall:.3f} s: warmup {w_s:.3f} s, sampling "
           f"{s_s:.3f} s  [{card}]")
     print(f"[main path] gradients used {n_grads:.0f}, {n_grads / (w_s + s_s):.1f} "
@@ -443,28 +544,14 @@ def run_main_path(card: str, ref) -> dict:
     return launches
 
 
-def run_fused_route(card: str, ref, warmup: int = 50,
-                    order=("unfused", "fused")) -> dict:
-    """Warmup once, then sampling with the unfused and the fused tier-2
-    pass from the same warmed state, in ``order``."""
-    from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
+def _start_state(logp_grad, dim: int, seed: int, wcfg, scfg):
+    """The warmup state ``walnuts()`` makes for ``seed`` (api.py)."""
     from walnuts_tpu_torch.core.adapt import nutpie_init_mass
-    from walnuts_tpu_torch.core.sampler import (
-        freeze_params,
-        init_sample_state,
-        init_warmup_state,
-    )
+    from walnuts_tpu_torch.core.sampler import init_warmup_state
     from walnuts_tpu_torch.ops import prng
-    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
     from walnuts_tpu_torch.ops.math import adapt_step_size
-    from walnuts_tpu_torch.parallel.runtime import run_sampling, run_warmup
 
-    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
-    wcfg = WarmupConfig(min_iter=warmup, max_iter=warmup, block_size=50)
-    scfg = SamplingConfig(min_iter=100, max_iter=100, block_size=50,
-                          max_step_halvings=HALVINGS)
-    # the start walnuts() makes for seed SEED + 1 (api.py)
-    base = prng.key(SEED + 1, DEVICE)
+    base = prng.key(seed, DEVICE)
     ids = torch.arange(CHAINS, device=DEVICE)
     theta0 = 2.0 * prng.normal(prng.fold_in(base, 0xFFFFFFFF), (CHAINS, dim),
                                torch.float32)
@@ -472,7 +559,25 @@ def run_fused_route(card: str, ref, warmup: int = 50,
                             torch.tensor(1e-5, device=DEVICE))
     step0 = adapt_step_size(prng.fold_in(base, ids + CHAINS), logp_grad, theta0,
                             mass, torch.ones(CHAINS, device=DEVICE))
-    ws = init_warmup_state(prng.fold_in(base, ids), theta0, mass, step0, wcfg, scfg)
+    return init_warmup_state(prng.fold_in(base, ids), theta0, mass, step0,
+                             wcfg, scfg)
+
+
+def run_fused_route(card: str, ref, warmup: int = 50,
+                    order=("unfused", "fused")) -> tuple:
+    """Warmup once, then sampling with the unfused and the fused tier-2
+    pass from the same warmed state, in ``order``. Returns the fused run's
+    launches and the warmed state."""
+    from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
+    from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+    from walnuts_tpu_torch.parallel.runtime import run_sampling, run_warmup
+
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    wcfg = WarmupConfig(min_iter=warmup, max_iter=warmup, block_size=50)
+    scfg = SamplingConfig(min_iter=ROUTE_ITERS, max_iter=ROUTE_ITERS,
+                          block_size=50, max_step_halvings=HALVINGS)
+    ws = _start_state(logp_grad, dim, SEED + 1, wcfg, scfg)
     t0 = time.perf_counter()
     ws, _, _, winfo = run_warmup(logp_grad, ws, wcfg, scfg, tier2_every=12)
     print(f"[fused route] run_warmup {warmup} iterations: "
@@ -490,7 +595,8 @@ def run_fused_route(card: str, ref, warmup: int = 50,
         wall = time.perf_counter() - t0
         launches = _counts()
         routes[name] = (d.cpu().numpy(), launches)
-        print(f"[fused route] sampling, {name} pass: wall {wall:.3f} s, "
+        print(f"[fused route] {ROUTE_ITERS} sampling iterations, {name} pass: "
+              f"wall {wall:.3f} s, "
               f"{info.n_inner_trips['sampling']} trips, "
               f"{info.n_outer_trips['sampling']} tier-2 passes, "
               f"{info.n_syncs['sampling']} syncs; launches {json.dumps(launches)}"
@@ -506,7 +612,142 @@ def run_fused_route(card: str, ref, warmup: int = 50,
           f"{same.mean():.4f} of {same.size}; largest difference "
           f"{np.abs(d_u - d_f).max():.3e} (reported only)  [{card}]")
     check_posterior(d_f, "fused route", card, ref)
+    return launches, ws
+
+
+def run_classic_path(card: str, ref) -> int:
+    """``walnuts(batched=False, integrator=...)`` with the fused integrator;
+    returns the integrator's launches on that run."""
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.models.kernels import logistic_regression_vg
+    from walnuts_tpu_torch.ops.integrator import make_fused_integrator
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    fused = make_fused_integrator(logistic_regression_vg(ROWS, DIM, device=DEVICE))
+    n = CLASSIC_ITERS
+    torch.cuda.synchronize()
+    _reset_counts()
+    fused.launches = 0
+    t0 = time.perf_counter()
+    out, info = wtt.walnuts(
+        logp_grad, fused=True, batched=False, integrator=fused, num_params=dim,
+        num_chains=CHAINS, dtype=torch.float32, seed=SEED + 2, device=DEVICE,
+        min_warmup_iter=n, max_warmup_iter=n, min_sampling_iter=n,
+        max_sampling_iter=n, block_size=50, return_info=True,
+        max_step_halvings=HALVINGS,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused.launches
+    attempts = sum(info.n_outer_trips.values())
+    if launches <= 0 or launches != attempts:
+        raise AssertionError(f"classic path: {launches} integrator launches "
+                             f"for {attempts} attempts")
+    draws = np.stack([np.asarray(c) for c in out], axis=1)  # (R, C, D)
+    if draws.shape[0] != n:
+        raise AssertionError(f"classic path: {draws.shape[0]} draws, not {n}")
+    check_posterior(draws, "classic path", card, ref)
+    w_s, s_s = info.seconds["warmup"], info.seconds["sampling"]
+    n_grads = float(np.sum(info.n_grads))
+    print(f"[classic path] logreg({DIM}) x {CHAINS} chains, walnuts(batched=False, "
+          f"integrator=fused), float32, {n} + {n} iterations, block 50, "
+          f"max_step_halvings {HALVINGS}  [{card}]")
+    print(f"[classic path] wall {wall:.3f} s: warmup {w_s:.3f} s, sampling "
+          f"{s_s:.3f} s  [{card}]")
+    for phase, sec in (("warmup", w_s), ("sampling", s_s)):
+        a = info.n_outer_trips[phase]
+        print(f"[classic path] {phase}: {a} attempts ({a / n:.1f} per "
+              f"iteration), {info.n_inner_trips[phase]} integrator calls, "
+              f"{info.n_syncs[phase]} syncs, {sec / a * 1e3:.3f} ms per "
+              f"attempt  [{card}]")
+    print(f"[classic path] gradients used {n_grads:.0f}, "
+          f"{n_grads / (w_s + s_s):.1f} per s over warmup + sampling; integrator "
+          f"launches {launches}; other launches {json.dumps(_counts())}  [{card}]")
     return launches
+
+
+def count_attempt_ops(card: str, logp_grad, fused, params, ss) -> None:
+    """Operations PyTorch dispatches for one attempt of the classic
+    sampling body and for the select on ``done`` that follows it (each is
+    one small launch on the card, bar a few views)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from walnuts_tpu_torch.core.adapt import adam_init, tree_where
+    from walnuts_tpu_torch.core.transition import make_transition_parts
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    init_state, body = make_transition_parts(logp_grad, 5, HALVINGS, False, fused)
+    lp, grad = logp_grad(ss.theta)
+    s = init_state(ss.key, ss.theta, lp, grad, params.step_size, params.inv_mass,
+                   params.min_micro, adam_init(params.step_size),
+                   torch.ones_like(params.min_micro))
+    max_error = torch.tensor(0.5, device=DEVICE)
+    with Count():
+        new = body(s, params.step_size, params.inv_mass, params.min_micro, max_error)
+    n_body, Count.n = Count.n, 0
+    with Count():
+        tree_where(s.done, s, new)
+    print(f"[classic A/B] one attempt of the sampling body dispatches {n_body} "
+          f"operations (the integrator's launch among them), the select on "
+          f"done {Count.n} more  [{card}]")
+
+
+def run_classic_ab(card: str, ws) -> None:
+    """20 classic sampling iterations from the warmed state ``ws`` (the
+    fused route's), with the kernel and with the plain integrator of the
+    same value-and-gradient."""
+    from walnuts_tpu_torch.config import SamplingConfig
+    from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
+    from walnuts_tpu_torch.models.kernels import logistic_regression_vg
+    from walnuts_tpu_torch.ops.integrator import (
+        make_fused_integrator,
+        make_plain_integrator,
+    )
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    model = logistic_regression_vg(ROWS, DIM, device=DEVICE)
+    fused = make_fused_integrator(model)
+    scfg = SamplingConfig(min_iter=20, max_iter=20, block_size=20,
+                          max_step_halvings=HALVINGS)
+    params, ss = freeze_params(ws), init_sample_state(ws)
+    count_attempt_ops(card, logp_grad, fused, params, ss)
+    runs = {}
+    for name, integrator in (("kernel", fused),
+                             ("plain", make_plain_integrator(model[0]))):
+        torch.cuda.synchronize()
+        fused.launches = 0
+        t0 = time.perf_counter()
+        st, d, _, info = run_sampling(logp_grad, ss, params, scfg, batched=False,
+                                      integrator=integrator)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = (st.key.cpu().numpy(), info.n_grads, d.cpu().numpy())
+        print(f"[classic A/B] 20 sampling iterations, {name} integrator: wall "
+              f"{wall:.3f} s, {info.n_outer_trips['sampling']} attempts, "
+              f"{info.n_syncs['sampling']} syncs of the attempt loop (the plain "
+              f"integrator reads one trip count more per attempt), kernel "
+              f"launches {fused.launches}  [{card}]")
+    (k_k, g_k, d_k), (k_p, g_p, d_p) = runs["kernel"], runs["plain"]
+    if not np.isfinite(d_k).all():
+        raise AssertionError("classic A/B: the kernel route's draws are not finite")
+    same_key = np.all(k_k == k_p, axis=-1)
+    same_grads = g_k == g_p
+    same_draws = np.isclose(d_k, d_p, rtol=1e-3, atol=1e-3).all(axis=(0, 2))
+    print(f"[classic A/B] chains that agree after 20 iterations: final keys "
+          f"(every attempt's split) {same_key.mean():.4f}, n_grads "
+          f"{same_grads.mean():.4f}, all draws within rtol 1e-3 atol 1e-3 "
+          f"{same_draws.mean():.4f}, all three "
+          f"{(same_key & same_grads & same_draws).mean():.4f} of {CHAINS} "
+          f"(reported only)  [{card}]")
 
 
 def profile_window(card: str) -> None:
@@ -548,6 +789,7 @@ def main() -> None:
                         help="sample the fused route's warmed state four times, "
                         "unfused, fused, fused, unfused")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     card = card_label()
@@ -558,7 +800,7 @@ def main() -> None:
     from walnuts_tpu_torch.models.targets import logistic_regression_data
     from walnuts_tpu_torch.ops import _cuda
 
-    names = ("replay", "logreg", "fused_pass")
+    names = ("replay", "logreg", "fused_pass", "integrator")
     t0 = time.perf_counter()
     _cuda.build(*names)
     print(f"[build] {len(names)} libraries, one nvcc each in parallel: "
@@ -573,14 +815,21 @@ def main() -> None:
 
     kernels = [check_replay(card), check_logreg(card), check_fused_pass(card, DIM)]
     check_fused_pass(card, 101)
+    for body in ("std_normal", "ill_conditioned_normal", "funnel"):
+        check_integrator(card, body)
+    kernels.append(check_integrator(card, "logistic_regression"))
     ref = laplace(*logistic_regression_data(ROWS, DIM))
     launches = run_main_path(card, ref)
     order = ("unfused", "fused", "fused", "unfused") if args.ab else ("unfused", "fused")
-    launches["fused_pass"] = run_fused_route(card, ref, order=order)["fused_pass"]
+    route_launches, warmed = run_fused_route(card, ref, order=order)
+    launches["fused_pass"] = route_launches["fused_pass"]
+    launches["integrator"] = run_classic_path(card, ref)
+    run_classic_ab(card, warmed)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if args.profile:
         profile_window(card)
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all  [{card}]")
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms", "plain_ms",

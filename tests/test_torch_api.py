@@ -7,7 +7,7 @@ positions, the initial step-size search, warmup and sampling all follow
 the reference's threefry stream, so the runs are compared chain by chain:
 gradient and failure counts exactly, floats to the stated tolerance.
 Floats drift by summation order and the normals' last ulps (see
-test_torch_prng.py) through 70 iterations of chaotic dynamics; the
+test_torch_prng.py) through 50 iterations of chaotic dynamics; the
 funnel's draws are held to rtol 1e-9 with an absolute floor of 1e-9 for
 draws near zero, the logistic regression's (float32 model) to atol 1e-4.
 """
@@ -52,8 +52,8 @@ def _assert_counts_equal(ji, ti):
 def test_funnel_matches_reference():
     jo, ji, to, ti = _run_both(
         jax_funnel(5)[0], funnel(5)[0], num_params=5, num_chains=4, seed=11,
-        min_warmup_iter=40, max_warmup_iter=40, min_sampling_iter=30,
-        max_sampling_iter=30)
+        min_warmup_iter=25, max_warmup_iter=25, min_sampling_iter=25,
+        max_sampling_iter=25)
     _assert_counts_equal(ji, ti)
     np.testing.assert_allclose(_stack(to), _stack(jo), rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose([c.warmup.stepsize for c in to],
@@ -68,11 +68,11 @@ def test_fused_logreg_matches_reference():
     jo, ji, to, ti = _run_both(
         jax_fused(interpret=True)[0], logistic_regression_fused(device="cpu")[0],
         num_params=25, num_chains=2, seed=3, fused=True,
-        min_warmup_iter=15, max_warmup_iter=15, min_sampling_iter=25,
-        max_sampling_iter=25)
+        min_warmup_iter=10, max_warmup_iter=10, min_sampling_iter=15,
+        max_sampling_iter=15)
     _assert_counts_equal(ji, ti)
     draws = _stack(to)
-    assert draws.shape == (2, 25, 25) and np.isfinite(draws).all()
+    assert draws.shape == (2, 15, 25) and np.isfinite(draws).all()
     np.testing.assert_allclose(draws, _stack(jo), atol=1e-4)
     np.testing.assert_allclose([c.warmup.stepsize for c in to],
                                [c.warmup.stepsize for c in jo], rtol=1e-4)
@@ -91,10 +91,10 @@ def test_outputs_and_info_shape():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("batched", False), ("batched_groups", 2),
+    ("mesh", object()), ("batched_groups", 2),
     ("model_dtype", torch.float32), ("checkpoint_dir", "ckpt"), ("thin", 2),
     ("keep_dims", [0]), ("bf16_ends", True), ("flatten", True),
-    ("chain_groups", 2), ("integrator", object()), ("profile_dir", "prof"),
+    ("chain_groups", 2), ("profile_dir", "prof"),
     ("min_latched", 1), ("defer_splits", False),
 ])
 def test_unported_options_raise(option, value):
@@ -110,7 +110,9 @@ def test_unknown_option_is_a_type_error():
 def test_import_loads_no_jax():
     code = (
         "import sys, walnuts_tpu_torch, walnuts_tpu_torch.convert, "
-        "walnuts_tpu_torch.ops.logreg_fused, walnuts_tpu_torch.ops._cuda\n"
+        "walnuts_tpu_torch.ops.logreg_fused, walnuts_tpu_torch.ops._cuda, "
+        "walnuts_tpu_torch.ops.integrator, walnuts_tpu_torch.ops.fused_pass, "
+        "walnuts_tpu_torch.models.kernels\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'walnuts_tpu'"
         " or m.startswith('walnuts_tpu.'))\n"

@@ -13,7 +13,13 @@ on every lane; rows to a few ulp (the restart's normals run the same
 polynomial, rounded step by step on both sides); per-lane floats to rtol
 1e-5 / atol 1e-4 in float32 (1e-10 in float64), because the momentum
 energy of a restart is a warp sum in the kernel and PyTorch's reduction in
-the plain version.
+the plain version. The fused integrator is held to ``integrate_plain`` on
+the card: zero-step lanes bitwise; the simple bodies repeat the plain
+version's arithmetic product by product (``-fmad=false``) and differ by the
+order of their feature sums only (float32 rtol 1e-4 / atol 1e-4, float64
+1e-9 over up to 256 steps); the logistic-regression body sums its 1000-row
+products in another order than the plain version's matrix products (rtol
+1e-3 / atol 5e-3).
 """
 
 import numpy as np
@@ -31,8 +37,10 @@ from walnuts_tpu_torch.core.sampler import (
     init_sample_state,
     init_warmup_state,
 )
+from walnuts_tpu_torch.models import kernels
 from walnuts_tpu_torch.models.targets import logistic_regression_data
 from walnuts_tpu_torch.ops import fused_pass as fp
+from walnuts_tpu_torch.ops import integrator as integ
 from walnuts_tpu_torch.ops import prng
 from walnuts_tpu_torch.ops.logreg_fused import (
     logistic_regression_fused,
@@ -215,3 +223,100 @@ def test_run_sampling_fused_route_on_card(cuda):
     _, d_u, _, _ = run_sampling(lg, ss, params, scfg)
     assert d_f.shape == d_u.shape == (20, c, dim)
     assert torch.isfinite(d_f).all() and torch.isfinite(l_f).all()
+
+
+# body -> (factory, input scales, dtypes)
+_INTEGRATOR_CASES = {
+    "std_normal": (lambda dev: kernels.std_normal_vg(100), {},
+                   (torch.float32, torch.float64)),
+    "funnel": (lambda dev: kernels.funnel_vg(101),
+               dict(theta_scale=0.5, dt_range=(0.01, 0.05)),
+               (torch.float32, torch.float64)),
+    "ill_conditioned_normal": (
+        lambda dev: kernels.ill_conditioned_normal_vg(100, device=dev), {},
+        (torch.float32, torch.float64)),
+    "wide_normal": (lambda dev: kernels.ill_conditioned_normal_vg(300, device=dev),
+                    {}, (torch.float32, torch.float64)),
+    "logistic_regression": (
+        lambda dev: kernels.logistic_regression_vg(device=dev),
+        dict(theta_scale=0.3, inv_mass_scale=0.005, dt_range=(0.05, 0.2)),
+        (torch.float32,)),
+}
+
+
+@pytest.mark.parametrize("c", [1, 100, 4096])
+@pytest.mark.parametrize("body", sorted(_INTEGRATOR_CASES))
+def test_integrator_kernel_vs_plain(cuda, body, c):
+    factory, scales, dtypes = _INTEGRATOR_CASES[body]
+    model = factory(cuda)
+    vg, dim, _ = model
+    for dtype in dtypes:
+        inp = integ.synthetic_attempt_inputs(c, dim, c + dim, **scales)
+        if c > 1:
+            inp["n_steps"][:2] = [0, 256]
+        args = integ.attempt_tensors(vg, inp, dtype, cuda)
+        fused = integ.make_fused_integrator(model)
+        cur_k, lp_k = fused(*args)
+        torch.cuda.synchronize()
+        assert fused.launches == 1
+        cur_p, lp_p = integ.integrate_plain(vg, *args)
+        zero = args[3] == 0
+        assert torch.equal(cur_k[zero], args[0][zero])
+        assert bool((lp_k[zero] == float("-inf")).all())
+        if body == "logistic_regression":
+            tol = dict(rtol=1e-3, atol=5e-3)
+        elif dtype == torch.float32:
+            tol = dict(rtol=1e-4, atol=1e-4)
+        else:
+            tol = dict(rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(cur_k.cpu().numpy(), cur_p.cpu().numpy(), **tol)
+        np.testing.assert_allclose(lp_k[~zero].cpu().numpy(),
+                                   lp_p[~zero].cpu().numpy(), **tol)
+
+
+def test_integrator_kernel_refuses_bad_input(cuda):
+    model = kernels.std_normal_vg(5)
+    inp = integ.synthetic_attempt_inputs(8, 5, 1, max_steps=4)
+    cur, im, dt, n = integ.attempt_tensors(model[0], inp, torch.float32, cuda)
+    fused = integ.make_fused_integrator(model)
+    with pytest.raises(ValueError, match="n_steps"):
+        fused(cur, im, dt, n.long())
+    with pytest.raises(ValueError, match="inv_mass"):
+        fused(cur, im.cpu(), dt, n)
+    with pytest.raises(ValueError, match="cur"):
+        fused(cur.transpose(0, 1).contiguous().transpose(0, 1), im, dt, n)
+    # a value-and-gradient with no device body raises on the card
+    other = kernels.BatchedVG(model[0].fn, "mine", 5)
+    with pytest.raises(ValueError, match="no device body"):
+        integ.make_fused_integrator(other)(cur, im, dt, n)
+    assert fused.launches == 0
+
+
+def test_run_sampling_classic_with_integrator_on_card(cuda):
+    """The classic sampler on the card with the kernel: one launch per
+    attempt, finite draws, and the plain route's draws on nearly every
+    lane (a lane may part ways through the order of a feature sum)."""
+    from walnuts_tpu_torch.models import funnel
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    c, dim = 256, 11
+    lg = make_logp_grad(funnel(dim)[0])
+    wcfg = WarmupConfig(min_iter=0, max_iter=0, block_size=10)
+    scfg = SamplingConfig(min_iter=10, max_iter=10, block_size=10,
+                          max_step_halvings=6)
+    keys = prng.fold_in(prng.key(3, cuda), torch.arange(c, device=cuda))
+    theta = prng.normal(prng.key(4, cuda), (c, dim), torch.float32)
+    ws = init_warmup_state(keys, theta, torch.ones_like(theta),
+                           torch.full((c,), 0.3, device=cuda), wcfg, scfg)
+    params, ss = freeze_params(ws), init_sample_state(ws)
+    fused = integ.make_fused_integrator(kernels.funnel_vg(dim))
+    _, d_k, l_k, info = run_sampling(lg, ss, params, scfg, batched=False,
+                                     integrator=fused)
+    torch.cuda.synchronize()
+    assert fused.launches == info.n_outer_trips["sampling"] > 0
+    _, d_p, _, _ = run_sampling(lg, ss, params, scfg, batched=False)
+    assert d_k.shape == d_p.shape == (10, c, dim)
+    assert torch.isfinite(d_k).all() and torch.isfinite(l_k).all()
+    same = torch.isclose(d_k, d_p, rtol=1e-3, atol=1e-3).all(-1).all(0)
+    assert same.float().mean() > 0.9

@@ -7,11 +7,13 @@ JAX package stays as it is and is the reference; this package imports no
 JAX.
 
 Ported so far: the batched-native ``walnuts()`` path (asynchronous
-adaptive warmup and sampling on one device), the funnel and
-logistic-regression targets, the diagnostics (``summary``), and the two
-kernels that path runs — the deferred threefry key-split replay
-(``csrc/replay.cu``) and the fused logistic-regression value and gradient
-(``csrc/logreg.cu``). ROADMAP.md lists what remains.
+adaptive warmup and sampling on one device) and the classic per-draw path
+(``batched=False``, ``integrator=``), four targets, the diagnostics
+(``summary``), and four kernels — the deferred threefry key-split replay
+(``csrc/replay.cu``), the fused logistic-regression value and gradient
+(``csrc/logreg.cu``), the fused tier-2 pass (``csrc/fused_pass.cu``) and
+the fused leapfrog integrator (``csrc/integrator.cu``). ROADMAP.md lists
+what remains.
 """
 
 from walnuts_tpu_torch.api import walnuts

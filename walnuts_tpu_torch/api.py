@@ -1,8 +1,9 @@
 """End-to-end sampling API of the PyTorch port.
 
-Counterpart of ``walnuts_tpu/api.py::walnuts`` on its default path: the
-batched-native scheduler on one device, asynchronous adaptive warmup and
-then sampling. The model is a batched PyTorch function ``theta (C, D) ->
+Counterpart of ``walnuts_tpu/api.py::walnuts`` on one device: by default
+the batched-native scheduler (asynchronous adaptive warmup, then
+sampling), with ``batched=False`` or an ``integrator`` the classic
+per-draw path. The model is a batched PyTorch function ``theta (C, D) ->
 log density (C,)`` differentiated by autograd, or with ``fused=True`` a
 function ``theta (C, D) -> (log density (C,), gradient (C, D))`` such as
 ``ops.logreg_fused.logistic_regression_fused``.
@@ -45,8 +46,6 @@ from walnuts_tpu_torch.utils.output import (
 # select the ported behaviour, and what a user must know otherwise
 _NOT_PORTED = {
     "mesh": ((None,), "multi-device chain sharding (ROADMAP.md Queue 1, multi-GPU)"),
-    "batched": ((None, True), "batched=False, the classic per-draw scheduler "
-                              "(ROADMAP.md Queue 1, classic path)"),
     "batched_groups": ((1,), "cost-sorted chain groups (ROADMAP.md Queue 1)"),
     "model_dtype": ((None,), "precision islands (ROADMAP.md Queue 1)"),
     "checkpoint_dir": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
@@ -55,7 +54,6 @@ _NOT_PORTED = {
     "bf16_ends": ((False,), "bfloat16 merge-stack endpoints (ROADMAP.md Queue 1)"),
     "flatten": ((False,), "the flattened classic scheduler (ROADMAP.md Queue 1)"),
     "chain_groups": ((1,), "classic chain groups (ROADMAP.md Queue 1)"),
-    "integrator": ((None,), "a custom attempt integrator (ROADMAP.md Queue 2)"),
     "profile_dir": ((None,), "profiler traces (ROADMAP.md Queue 1)"),
     "min_latched": ((0,), "tier-2 pass deferral (ROADMAP.md Queue 1)"),
     "defer_splits": ((True,), "per-trip key splits; the port always defers "
@@ -113,6 +111,8 @@ def walnuts(
     block_size: int = 25,
     return_info: bool = False,
     fused: bool = False,
+    batched: Optional[bool] = None,
+    integrator=None,
     runahead: int = 8,
     tier2_every: int = 6,
     warmup_tier2_every: Optional[int] = None,
@@ -127,6 +127,13 @@ def walnuts(
       (default ``"cuda"``; pass ``"cpu"`` to run the plain versions).
     - ``dtype``: the sampler's float dtype (default ``torch.float32``).
     - ``fused``: ``logp`` already returns ``(log density, gradient)``.
+    - ``batched``: the batched-native scheduler (True) or the classic
+      per-draw path (False), whose draws are the same per chain. ``None``
+      picks the batched scheduler unless an ``integrator`` is given.
+    - ``integrator``: an attempt integrator for the classic path, e.g.
+      ``ops.integrator.make_fused_integrator(models.kernels.funnel_vg(d))``
+      (one kernel launch per attempt on CUDA tensors). With
+      ``batched=True`` it raises ``ValueError``.
     - ``runahead``/``tier2_every``: sampling's run-ahead depth and tier-2
       cadence; ``warmup_tier2_every`` (default 12) is warmup's cadence;
       warmup's run-ahead is 4, as in the reference.
@@ -150,6 +157,10 @@ def walnuts(
             )
     dtype = dtype or torch.float32
     device = torch.device(device)
+    if batched is None:
+        # the batched scheduler emits the classic path's draws, so this is
+        # a pure scheduling default; an integrator runs on the classic path
+        batched = integrator is None
     if num_chains < 1:
         raise ValueError(
             f"num_chains must be positive; found num_chains = {num_chains}")
@@ -273,7 +284,8 @@ def walnuts(
                                warmup_cfg, sampling_cfg)
     wstate, warmup_draws, warmup_logps, info = run_warmup(
         logp_grad, wstate, warmup_cfg, sampling_cfg,
-        save_warmup=save_warmup, progress=progress,
+        save_warmup=save_warmup, progress=progress, batched=batched,
+        integrator=integrator,
         tier2_every=12 if warmup_tier2_every is None else warmup_tier2_every,
     )
     params = freeze_params(wstate)
@@ -283,7 +295,8 @@ def walnuts(
         sstate = init_sample_state(wstate)
         _, draws_t, _, info = run_sampling(
             logp_grad, sstate, params, sampling_cfg, info=info,
-            progress=progress, on_r_hat=on_r_hat, runahead=runahead,
+            progress=progress, on_r_hat=on_r_hat, batched=batched,
+            integrator=integrator, runahead=runahead,
             tier2_every=tier2_every,
         )
         draws = draws_t.cpu().numpy()

@@ -152,13 +152,23 @@ def lane_state_from_pass(fp, ip, bp, up, acc_v, agb, ags, agf, stack_e,
 
 
 def to_numpy(tree):
-    """A port NamedTuple (nested ones included) as NumPy arrays; keys stay
-    ``int32`` (see :func:`key_data_numpy`)."""
+    """A port NamedTuple (nested ones included: a state, a
+    ``TransitionResult``) as NumPy arrays; keys stay ``int32`` (see
+    :func:`key_data_numpy`) and host counts stay ints."""
     if isinstance(tree, tuple):
         return type(tree)(*(to_numpy(x) for x in tree))
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
+
+
+def vg_consts(consts, device="cpu") -> tuple:
+    """The constants of a reference value-and-gradient factory
+    (``walnuts_tpu/models/kernels.py``: logistic regression's ``(xt, x,
+    y)``, the ill-conditioned normal's ``(inv_var,)``), NumPy-readable, as
+    tensors of the same dtype: what the port's ``vg(theta, *consts)``
+    takes."""
+    return tuple(torch.from_numpy(np.array(c)).to(device) for c in consts)
 
 
 def logreg_tensors(design, y_sign, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -179,5 +189,6 @@ __all__ = [
     "sample_state",
     "to_numpy",
     "to_port",
+    "vg_consts",
     "warmup_state",
 ]

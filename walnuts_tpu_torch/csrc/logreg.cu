@@ -30,17 +30,21 @@
 // the partials are reduced across the warp with shuffles at the end. The
 // (B, N) logits never exist in memory, as on the TPU where the tile stayed
 // in VMEM. log sigmoid(z) = -(max(0, -z) + log1p(exp(-|z|))) and
-// sigmoid(-z) are evaluated in their overflow-free forms.
+// sigmoid(-z) are evaluated in their overflow-free forms. The per-chain
+// evaluation lives in logreg_chain.cuh, which the fused integrator
+// (integrator.cu) runs once per leapfrog step.
 
 #include <cuda_runtime.h>
 
+#include "logreg_chain.cuh"
+
 namespace {
 
-constexpr int KP = 32;       // padded feature width: P <= 32
-constexpr int XS = KP + 1;   // shared-memory row stride (odd: no conflicts)
-constexpr int TILE = 32;     // chains per block
-constexpr int WARPS = 8;     // warps per block
-constexpr int MAX_CHUNK = 1024;  // rows of X staged at once
+constexpr int KP = wt::LOGREG_KP;  // padded feature width: P <= 32
+constexpr int XS = wt::LOGREG_XS;  // shared-memory row stride (odd: no conflicts)
+constexpr int TILE = 32;           // chains per block
+constexpr int WARPS = 8;           // warps per block
+constexpr int MAX_CHUNK = wt::LOGREG_MAX_ROWS;  // rows of X staged at once
 
 __global__ void __launch_bounds__(WARPS * 32)
     logreg_kernel(const float* __restrict__ theta, const float* __restrict__ x,
@@ -67,53 +71,19 @@ __global__ void __launch_bounds__(WARPS * 32)
       const int rows = min(chunk, N - r0);
       if (!whole || ci == 0) {  // block-uniform: every thread syncs
         __syncthreads();
-        for (int i = threadIdx.x; i < rows * KP; i += blockDim.x) {
-          const int r = i / KP, k = i % KP;
-          xs[r * XS + k] =
-              k < P ? x[static_cast<size_t>(r0 + r) * P + k] : 0.f;
-        }
-        for (int i = threadIdx.x; i < rows; i += blockDim.x) ys[i] = y[r0 + i];
+        wt::logreg_stage(x, y, xs, ys, r0, rows, P);
         __syncthreads();
       }
-      if (!live) continue;
-      for (int r = lane; r < rows; r += 32) {
-        const float* xr = xs + r * XS;
-        float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
-#pragma unroll
-        for (int k = 0; k < KP; k += 4) {
-          l0 = fmaf(th[k], xr[k], l0);
-          l1 = fmaf(th[k + 1], xr[k + 1], l1);
-          l2 = fmaf(th[k + 2], xr[k + 2], l2);
-          l3 = fmaf(th[k + 3], xr[k + 3], l3);
-        }
-        const float yr = ys[r];
-        const float z = yr * ((l0 + l1) + (l2 + l3));
-        const float e = expf(-fabsf(z));
-        lacc -= fmaxf(-z, 0.f) + log1pf(e);
-        const float sig_neg = z >= 0.f ? e / (1.f + e) : 1.f / (1.f + e);
-        const float s = yr * sig_neg;
-#pragma unroll
-        for (int k = 0; k < KP; ++k) acc[k] = fmaf(s, xr[k], acc[k]);
-      }
+      if (live) wt::logreg_accumulate(xs, ys, rows, lane, th, acc, lacc);
     }
     if (!live) continue;
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      lacc += __shfl_xor_sync(0xffffffffu, lacc, off);
+    wt::logreg_reduce(acc, lacc);
+    const float lp_c = wt::logreg_finish(th, acc, lacc);
     if (lane == 0) {
-      float sq = 0.f;
 #pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        sq = fmaf(th[k], th[k], sq);
-        if (k < P) grad[static_cast<size_t>(c) * P + k] = acc[k] - th[k];
-      }
-      lp[c] = lacc - 0.5f * sq;
+      for (int k = 0; k < KP; ++k)
+        if (k < P) grad[static_cast<size_t>(c) * P + k] = acc[k];
+      lp[c] = lp_c;
     }
   }
 }

@@ -19,6 +19,27 @@ import torch.nn.functional as F
 Target = Tuple[Callable[[torch.Tensor], torch.Tensor], int]
 
 
+def std_normal(dim: int) -> Target:
+    """Isotropic standard normal in ``dim`` dimensions."""
+
+    def logp(theta: torch.Tensor) -> torch.Tensor:
+        return -0.5 * torch.sum(torch.square(theta), dim=-1)
+
+    return logp, dim
+
+
+def ill_conditioned_normal(dim: int) -> Target:
+    """Independent normal with linearly growing scales ``sigma_d = d``: the
+    stress target for mass-matrix adaptation."""
+    inv_var = torch.as_tensor(1.0 / np.arange(1, dim + 1, dtype=np.float64) ** 2)
+
+    def logp(theta: torch.Tensor) -> torch.Tensor:
+        iv = inv_var.to(device=theta.device, dtype=theta.dtype)
+        return -0.5 * torch.sum(iv * torch.square(theta), dim=-1)
+
+    return logp, dim
+
+
 def funnel(dim: int = 10, scale: float = 3.0) -> Target:
     """Neal's funnel: v ~ N(0, scale^2), x_i | v ~ N(0, exp(v));
     ``theta[:, 0]`` is ``v`` and ``theta[:, 1:]`` the latent ``x``."""
@@ -73,4 +94,10 @@ def logistic_regression(
     return logp, dim
 
 
-__all__ = ["funnel", "logistic_regression", "logistic_regression_data"]
+__all__ = [
+    "funnel",
+    "ill_conditioned_normal",
+    "logistic_regression",
+    "logistic_regression_data",
+    "std_normal",
+]

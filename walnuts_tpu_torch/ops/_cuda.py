@@ -29,8 +29,10 @@ NVCC_FLAGS = (
 )
 
 # flags beyond NVCC_FLAGS, per library: the fused pass draws normals through
-# threefry.cuh's polynomials, which must round each product as PyTorch does
-_EXTRA_FLAGS = {"fused_pass": ("-fmad=false",)}
+# threefry.cuh's polynomials, and the integrator's leapfrog and simple model
+# bodies repeat their plain versions' arithmetic; both must round each
+# product as PyTorch does
+_EXTRA_FLAGS = {"fused_pass": ("-fmad=false",), "integrator": ("-fmad=false",)}
 
 # C entry points: every pointer, and the stream, as c_void_p
 _SIGNATURES = {
@@ -46,6 +48,12 @@ _SIGNATURES = {
         # the address of a FusedPassArgs struct (ops/fused_pass.py), stream
         "wt_fused_pass": [ctypes.c_void_p, ctypes.c_void_p],
         "wt_fused_pass_args_size": [],
+    },
+    "integrator": {
+        # cur, inv_mass, dt, n_steps, two constants, cur_out, lp_out; C, D,
+        # body, is_double; two scalar parameters; n_data; stream
+        "wt_integrate": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p],
     },
 }
 

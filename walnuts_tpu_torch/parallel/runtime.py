@@ -1,7 +1,11 @@
 """Block loops of warmup and sampling, on one device.
 
-Counterpart of ``walnuts_tpu/parallel/runtime.py`` for one device and the
-batched-native scheduler. Chains advance in blocks of ``block_size``
+Counterpart of ``walnuts_tpu/parallel/runtime.py`` for one device, with
+both schedulers: the batched-native one (``batched=True``, the default)
+and the classic per-draw one (``batched=False``), where a block is ``n``
+calls of the step function of ``core/sampler.py`` (the reference's
+``lax.scan`` over the vmapped step) and an attempt integrator may replace
+the inner leapfrog loop. Chains advance in blocks of ``block_size``
 iterations; between blocks the cross-chain convergence checks run (the
 geometric-mean test of the adapted tuning during warmup, the log-density
 R-hat during sampling) and may stop the phase early, at the same
@@ -9,9 +13,9 @@ iterations as the reference (``_next_boundary``). Sampling draws are
 written in place into ONE preallocated device tensor, and reach the host
 only when the caller asks for them.
 
-Not ported yet (ROADMAP.md): a device mesh, ``batched=False`` (the classic
-per-draw scheduler), ``batched_groups > 1``, checkpointing, ``thin`` and
-``keep_dims``. The reference's automatic block-size cap
+Not ported yet (ROADMAP.md): a device mesh, ``batched_groups > 1``, the
+classic path's ``flatten`` and ``chain_groups``, checkpointing, ``thin``
+and ``keep_dims``. The reference's automatic block-size cap
 (``_BlockBudget``) exists to keep one jitted TPU program under a worker's
 time limit; eager blocks here have no such limit, so it is not ported.
 """
@@ -31,8 +35,14 @@ from walnuts_tpu_torch.core.batched import (
     make_batched_sample_block,
     make_batched_warmup_block,
 )
-from walnuts_tpu_torch.core.sampler import FrozenParams, SampleState, WarmupState
-from walnuts_tpu_torch.core.transition import FailStats
+from walnuts_tpu_torch.core.sampler import (
+    FrozenParams,
+    SampleState,
+    WarmupState,
+    make_sample_step,
+    make_warmup_step,
+)
+from walnuts_tpu_torch.core.transition import FailStats, TripCounts
 from walnuts_tpu_torch.ops.math import LogpGradFn
 
 
@@ -46,7 +56,10 @@ class RunInfo:
     evaluations (``n_inner_trips``), tier-2 passes (``n_outer_trips``),
     device-to-host reads of loop conditions (``n_syncs``) and blocks run,
     each per phase, and the wall seconds of each phase (host clock, ending
-    on a device synchronize).
+    on a device synchronize). On the classic path ``n_outer_trips`` counts
+    attempts and ``n_inner_trips`` the model evaluations the host asked for:
+    masked leapfrog steps, or integrator calls when an integrator runs the
+    attempt (``core.transition.TripCounts``).
     """
 
     warmup_iters: int = 0
@@ -116,6 +129,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _refuse_batched_integrator(batched: bool, integrator) -> None:
+    if batched and integrator is not None:
+        # never silently drop a user-built integrator: the batched
+        # scheduler integrates inside its own trip loop
+        raise ValueError(
+            "batched is incompatible with a custom integrator "
+            "(pass batched=False to use it)")
+
+
 def run_warmup(
     logp_grad: LogpGradFn,
     state: WarmupState,
@@ -125,19 +147,43 @@ def run_warmup(
     save_warmup: bool = False,
     progress=None,
     info: Optional[RunInfo] = None,
+    batched: bool = True,
+    integrator=None,
     runahead: int = 4,
     tier2_every: int = 6,
 ) -> Tuple[WarmupState, Optional[torch.Tensor], Optional[torch.Tensor], RunInfo]:
-    """Asynchronous adaptive warmup with block-synchronous early stopping.
+    """Adaptive warmup with block-synchronous early stopping.
 
     ``state`` is a chain-batched ``WarmupState``. Returns the final state,
     with ``save_warmup`` the warmup draws ``(iters, C, D)`` and log
     densities ``(iters, C)`` on the state's device, and the run info.
     A ``KeyboardInterrupt`` between blocks ends warmup early and keeps the
     adaptation reached so far.
+
+    ``batched=True`` is the asynchronous batched-native warmup
+    (``runahead``, ``tier2_every``). ``batched=False`` is the classic
+    warmup: every iteration is one transition of all chains in lock step,
+    adapted at the draw boundary, and ``integrator`` (see
+    ``ops.integrator``) may run each attempt's leapfrog steps. An
+    integrator with ``batched=True`` raises ``ValueError``.
     """
-    warmup_block = make_batched_warmup_block(
-        logp_grad, sampling_cfg, runahead=runahead, tier2_every=tier2_every)
+    _refuse_batched_integrator(batched, integrator)
+    if batched:
+        warmup_block = make_batched_warmup_block(
+            logp_grad, sampling_cfg, runahead=runahead, tier2_every=tier2_every)
+    else:
+        warmup_step = make_warmup_step(logp_grad, sampling_cfg,
+                                       integrator=integrator)
+
+        def warmup_block(ws: WarmupState, n: int, out=None):
+            counts = TripCounts()
+            for i in range(n):
+                ws, o = warmup_step(ws)
+                counts += o.counts
+                if out is not None:
+                    out[0][i].copy_(o.theta)
+                    out[1][i].copy_(o.logp)
+            return ws, counts
     info = info or RunInfo()
     dev = state.theta.device
     C, D = state.theta.shape
@@ -193,6 +239,8 @@ def run_sampling(
     info: Optional[RunInfo] = None,
     progress=None,
     on_r_hat=None,
+    batched: bool = True,
+    integrator=None,
     runahead: int = 8,
     tier2_every: int = 6,
     pallas_pass: bool = False,
@@ -205,44 +253,36 @@ def run_sampling(
     state's device for ``max_iter`` draws and filled in place block by
     block — and the run info.
 
+    ``batched=False`` is the classic sampler: every iteration is one
+    transition of all chains in lock step (each pass of its attempt loop
+    waits for the slowest chain), with the per-draw Welford update, and
+    ``integrator`` (see ``ops.integrator``) may run each attempt's leapfrog
+    steps. Per lane its draws are the batched scheduler's; ``n_grads`` is
+    one higher per draw (every transition re-evaluates its start point).
+    An integrator with ``batched=True`` raises ``ValueError``.
+
     ``pallas_pass=True`` runs each tier-2 pass as one launch of the fused
     pass kernel (CUDA tensors; the plain version on the CPU) with
     ``pass_tile`` chains per CUDA block; the chains are the unfused
-    pass's. Off by default, as in the reference.
+    pass's. Off by default, as in the reference; batched only.
     """
-    start_blk, sample_blk = make_batched_sample_block(
-        logp_grad,
-        sampling_cfg.max_trajectory_doublings,
-        sampling_cfg.max_step_halvings,
-        runahead=runahead,
-        tier2_every=tier2_every,
-        pallas_pass=pallas_pass,
-        pass_tile=pass_tile,
-    )
-    info = info or RunInfo()
-    dev = state.theta.device
-    C, D = state.theta.shape
-    dtype = state.theta.dtype
-    draws = torch.empty((sampling_cfg.max_iter, C, D), dtype=dtype, device=dev)
-    logps = torch.empty((sampling_cfg.max_iter, C), dtype=dtype, device=dev)
-    max_error = torch.tensor(sampling_cfg.max_hamiltonian_error, dtype=dtype,
-                             device=dev)
+    _refuse_batched_integrator(batched, integrator)
+    if batched:
+        start_blk, sample_blk = make_batched_sample_block(
+            logp_grad,
+            sampling_cfg.max_trajectory_doublings,
+            sampling_cfg.max_step_halvings,
+            runahead=runahead,
+            tier2_every=tier2_every,
+            pallas_pass=pallas_pass,
+            pass_tile=pass_tile,
+        )
 
-    t0 = time.perf_counter()
-    it = 0
-    converged = False
-    try:
-        while it < sampling_cfg.max_iter and not converged:
-            next_check = _next_boundary(it, sampling_cfg.min_iter,
-                                        sampling_cfg.block_size,
-                                        sampling_cfg.max_iter)
-            n = min(sampling_cfg.block_size, next_check - it)
+        def run_block(state: SampleState, n: int, out):
             st = start_blk(state.key, state.theta, state.n_grads, state.fails,
                            params.step_size, params.inv_mass, params.min_micro)
             res = sample_blk(st, params.step_size, params.inv_mass,
-                             params.min_micro, max_error, n,
-                             out=(draws[it:it + n], logps[it:it + n]))
-            info._count("sampling", res)
+                             params.min_micro, max_error, n, out=out)
             # Chan et al. merge of the block's per-lane log-density stats
             # into the running Welford (the classic per-draw statistics)
             lps = res.logps.T  # (C, n)
@@ -262,6 +302,43 @@ def run_sampling(
                 lp_mean=state.lp_mean + delta * cnt_b / tot,
                 lp_m2=state.lp_m2 + m2_b + delta**2 * state.lp_count * cnt_b / tot,
             )
+            return state, res
+    else:
+        if pallas_pass:
+            raise ValueError("pallas_pass requires batched=True (the classic "
+                             "path has no tier-2 pass)")
+        sample_step = make_sample_step(logp_grad, sampling_cfg,
+                                       integrator=integrator)
+
+        def run_block(state: SampleState, n: int, out):
+            counts = TripCounts()
+            for i in range(n):
+                state, res = sample_step(state, params)
+                counts += res.counts
+                out[0][i].copy_(res.theta)
+                out[1][i].copy_(res.logp)
+            return state, counts
+
+    info = info or RunInfo()
+    dev = state.theta.device
+    C, D = state.theta.shape
+    dtype = state.theta.dtype
+    draws = torch.empty((sampling_cfg.max_iter, C, D), dtype=dtype, device=dev)
+    logps = torch.empty((sampling_cfg.max_iter, C), dtype=dtype, device=dev)
+    max_error = torch.tensor(sampling_cfg.max_hamiltonian_error, dtype=dtype,
+                             device=dev)
+
+    t0 = time.perf_counter()
+    it = 0
+    converged = False
+    try:
+        while it < sampling_cfg.max_iter and not converged:
+            next_check = _next_boundary(it, sampling_cfg.min_iter,
+                                        sampling_cfg.block_size,
+                                        sampling_cfg.max_iter)
+            n = min(sampling_cfg.block_size, next_check - it)
+            state, res = run_block(state, n, (draws[it:it + n], logps[it:it + n]))
+            info._count("sampling", res)
             it += n
             if progress is not None:
                 progress("sampling", it)
