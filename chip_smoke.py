@@ -2,21 +2,27 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version at the main path's shapes, then drives three paths of the port on
+version at the main path's shapes, then drives four paths of the port on
 adaptive WALNUTS for the 25-coefficient logistic regression (1000 rows)
 with the fused model kernel, 4096 chains, float32:
 
-- the main path, ``walnuts_tpu_torch.walnuts`` (batched scheduler, 50
-  warmup + 50 sampling iterations): the replay and logistic-regression
+- the main path, ``walnuts_tpu_torch.walnuts`` (batched scheduler, 30
+  warmup + 30 sampling iterations): the replay and logistic-regression
   kernels must run on it;
 - the fused route: ``run_warmup`` (50 iterations), then ``run_sampling``
   (50 iterations) twice from the same warmed state, with the unfused
   tier-2 pass and with ``pallas_pass=True``: the fused-pass kernel must
   run on the second;
-- the classic path: ``walnuts(batched=False, integrator=...)`` (30 + 30
+- the classic path: ``walnuts(batched=False, integrator=...)`` (20 + 20
   iterations) with the fused leapfrog integrator, which must launch once
   per attempt; then 20 classic sampling iterations from the fused route's
-  warmed state with the kernel and with the plain integrator, for an A/B.
+  warmed state with the kernel and with the plain integrator, for an A/B;
+- the transition path, from the same warmed state (its step sizes, inverse
+  masses and ``min_micro``): 50 draws through ``make_fused_transition``
+  (momenta, the logistic-regression kernel for the start point, one launch
+  per draw, no host sync in the loop), then 4 launches of 100 draws
+  through ``make_fused_sample_block``; then 20 draws of each beside the
+  classic A/B's 20 iterations.
 
 Each path's draws must be finite, and their pooled posterior mean and sd
 must agree with NumPy references (a Newton MAP, its Laplace sd, and the
@@ -30,8 +36,9 @@ times, unfused, fused, fused, unfused, for an A/B of the two passes. Any
 failed phase raises (non-zero exit). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
 route, launches on its path, error against its plain version, times and
-bound (the integrator's with its logistic-regression body; its three other
-bodies are checked and printed on earlier lines).
+bound (the integrator's and the transition kernels' with their
+logistic-regression body; their three other bodies are checked and printed
+on earlier lines).
 """
 
 from __future__ import annotations
@@ -55,9 +62,20 @@ DEVICE = "cuda"
 HALVINGS = 8
 # warmup and sampling iterations of the main path and of the classic path,
 # and sampling iterations of each run of the fused route
-MAIN_ITERS = 50
-CLASSIC_ITERS = 30
+MAIN_ITERS = 30
+CLASSIC_ITERS = 20
 ROUTE_ITERS = 50
+# the transition path: draws through the single-transition kernel, launches
+# and draws per launch of the sample-block kernel, draws of each in the A/B
+# beside the classic path, and the energy-error limit of every attempt
+TRANSITION_DRAWS = 50
+BLOCK_LAUNCHES = 4
+BLOCK_DRAWS = 100
+AB_DRAWS = 20
+MAX_ERROR = 0.5
+MAX_DEPTH = 5
+# draws of the sample block that is held against its plain version
+BLOCK_CHECK_DRAWS = 8
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
 # tensor cores (also taken as the integer ALU rate, which the guide's table
 # does not list)
@@ -416,6 +434,115 @@ def check_integrator(card: str, body: str) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+# per body of the transition kernels: the scales of the synthetic transition
+# (synthetic_transition_inputs) at the width of INTEGRATOR_BODIES
+TRANSITION_SCALES = {
+    "std_normal": dict(step_range=(0.2, 0.8)),
+    "ill_conditioned_normal": dict(step_range=(0.2, 0.8)),
+    "funnel": dict(theta_scale=0.5, step_range=(0.05, 0.3)),
+    "logistic_regression": dict(theta_scale=0.3, inv_mass_scale=0.005,
+                                step_range=(0.3, 1.0)),
+}
+TRANSITION_TOL = dict(rtol=1e-3, atol=5e-3)
+
+
+def _event_ms(fn) -> tuple:
+    """``fn()``'s result and its milliseconds between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def check_transition(card: str, body: str) -> list:
+    """One transition (5a) and a block of BLOCK_CHECK_DRAWS draws (5b) of
+    every chain, kernel against plain, at C = 4096 and the body's width:
+    depth and n_grads must be equal on at least 0.98 of the chains, and
+    theta, grad and logp (5b: every draw too) within TRANSITION_TOL on
+    those chains."""
+    from walnuts_tpu_torch.ops import fused_transition as ft
+
+    spec = INTEGRATOR_BODIES[body]
+    model = _integrator_model(body)
+    vg, dim, consts = model
+    read = consts[1:] if body == "logistic_regression" else consts
+    n_consts = sum(c.numel() for c in read)
+    inp = ft.synthetic_transition_inputs(CHAINS, dim, SEED + 5,
+                                         num_draws=BLOCK_CHECK_DRAWS,
+                                         **TRANSITION_SCALES[body])
+    t = ft.transition_tensors(vg, inp, DEVICE)
+    tail = (t["step"], t["inv_mass"], t["min_micro"], MAX_ERROR)
+    static = dict(max_depth=MAX_DEPTH, max_step_halvings=HALVINGS)
+    results = []
+    for name, n in (("fused_transition", 1), ("fused_sample_block", BLOCK_CHECK_DRAWS)):
+        attempts = torch.zeros(CHAINS, dtype=torch.int32, device=DEVICE)
+        if n == 1:
+            fused = ft.make_fused_transition(model, dim, MAX_DEPTH, HALVINGS)
+            args = (SEED, t["theta"], t["rho"][0].contiguous(), t["logp0"],
+                    t["grad0"], *tail)
+            plain = lambda: ft.fused_transition_plain(vg, *args, attempts=attempts,
+                                                      **static)
+            ints, floats, replaces = (3, 4), (0, 1, 2), 441
+        else:
+            fused = ft.make_fused_sample_block(model, dim, MAX_DEPTH, HALVINGS, n)
+            args = (SEED, t["theta"], t["logp0"], t["grad0"], t["rho"], *tail)
+            plain = lambda: ft.fused_sample_block_plain(vg, *args, attempts=attempts,
+                                                        **static)
+            ints, floats, replaces = (5,), (0, 1, 2, 3, 4), 555
+        got = fused(*args)
+        torch.cuda.synchronize()
+        if fused.launches != 1:
+            raise AssertionError(f"{name}[{body}]: {fused.launches} launches for one call")
+        want, plain_ms = _event_ms(plain)
+        same = torch.ones(CHAINS, dtype=torch.bool, device=DEVICE)
+        for i in ints:
+            same &= got[i] == want[i]
+        share = float(same.float().mean())
+        if share < 0.98:
+            raise AssertionError(f"{name}[{body}]: depth and n_grads agree on "
+                                 f"{share:.4f} of the chains only")
+        err = 0.0
+        for i in floats:
+            # the chain axis is the last but the feature axis
+            g, w = (x[i].movedim(1, 0) if n > 1 and i < 2 else x[i] for x in (got, want))
+            g, w = g[same].cpu().numpy(), w[same].cpu().numpy()
+            np.testing.assert_allclose(g, w, **TRANSITION_TOL)
+            err = max(err, float(np.abs(g - w).max()))
+        ms = time_ms(lambda: fused(*args), reps=5 if n == 1 else 3, warmup=1)
+        n_grads = want[ints[-1]].to(torch.int64)
+        evals = int(n_grads.sum()) - (CHAINS if n == 1 else 0)  # 5a counts the start
+        # operands and outputs once: theta, grad0, inv_mass in, theta, grad
+        # out, rho in and draws out per draw; logp0, step, min_micro and
+        # three lane outputs (and logps per draw); the body's constants.
+        # Operations: every evaluation's leapfrog and model body, and per
+        # attempt max_depth + 2 U-turn / combine passes over a span's 8 D
+        nbytes = 4.0 * (CHAINS * dim * (5 + (2 * n if n > 1 else 1))
+                        + CHAINS * (6 + (n if n > 1 else 0)) + n_consts)
+        ops = (float(evals) * (7 * dim + spec["ops"](dim))
+               + float(attempts.sum()) * (MAX_DEPTH + 2) * 8 * dim)
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"[transition] {name}, {body}, D={dim}"
+              f"{'' if n == 1 else f', {n} draws'}: kernel against plain at "
+              f"C={CHAINS}, max_depth {MAX_DEPTH}, max_step_halvings {HALVINGS}: "
+              f"depth and n_grads equal on {share:.4f} of the chains, on those "
+              f"theta, grad, logp within rtol {TRANSITION_TOL['rtol']:g} atol "
+              f"{TRANSITION_TOL['atol']:g} (max abs err {err:.3e}); {evals} "
+              f"evaluations in {int(attempts.sum())} attempts, largest per-chain "
+              f"n_grads {int(n_grads.max())}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms; bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+              f"{bound_ms / ms:.4f} of it  [{card}]")
+        results.append(dict(
+            name=name, route="cuda",
+            source="walnuts_tpu_torch/csrc/fused_transition.cu",
+            replaces=f"walnuts_tpu/ops/fused_transition.py:{replaces}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None))
+    return results
+
+
 def laplace(design: np.ndarray, y: np.ndarray):
     """Reference moments of the logistic-regression posterior (standard
     normal prior), in float64 NumPy: the Newton MAP, the Laplace sd
@@ -699,10 +826,11 @@ def count_attempt_ops(card: str, logp_grad, fused, params, ss) -> None:
           f"done {Count.n} more  [{card}]")
 
 
-def run_classic_ab(card: str, ws) -> None:
+def run_classic_ab(card: str, ws) -> tuple:
     """20 classic sampling iterations from the warmed state ``ws`` (the
     fused route's), with the kernel and with the plain integrator of the
-    same value-and-gradient."""
+    same value-and-gradient. Returns the kernel route's wall seconds and
+    gradients."""
     from walnuts_tpu_torch.config import SamplingConfig
     from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
     from walnuts_tpu_torch.models.kernels import logistic_regression_vg
@@ -730,13 +858,13 @@ def run_classic_ab(card: str, ws) -> None:
                                       integrator=integrator)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        runs[name] = (st.key.cpu().numpy(), info.n_grads, d.cpu().numpy())
+        runs[name] = (st.key.cpu().numpy(), info.n_grads, d.cpu().numpy(), wall)
         print(f"[classic A/B] 20 sampling iterations, {name} integrator: wall "
               f"{wall:.3f} s, {info.n_outer_trips['sampling']} attempts, "
               f"{info.n_syncs['sampling']} syncs of the attempt loop (the plain "
               f"integrator reads one trip count more per attempt), kernel "
               f"launches {fused.launches}  [{card}]")
-    (k_k, g_k, d_k), (k_p, g_p, d_p) = runs["kernel"], runs["plain"]
+    (k_k, g_k, d_k, wall_k), (k_p, g_p, d_p, _) = runs["kernel"], runs["plain"]
     if not np.isfinite(d_k).all():
         raise AssertionError("classic A/B: the kernel route's draws are not finite")
     same_key = np.all(k_k == k_p, axis=-1)
@@ -748,6 +876,179 @@ def run_classic_ab(card: str, ws) -> None:
           f"{same_draws.mean():.4f}, all three "
           f"{(same_key & same_grads & same_draws).mean():.4f} of {CHAINS} "
           f"(reported only)  [{card}]")
+    # info.n_grads goes on from the warmed state's counts
+    return wall_k, float(np.sum(g_k)) - float(ss.n_grads.sum())
+
+
+def _momenta(key, shape, inv_mass):
+    """Momenta ~ N(0, M): standard normals over sqrt(inv_mass)."""
+    from walnuts_tpu_torch.ops import prng
+
+    return (prng.normal(key, shape, torch.float32) / torch.sqrt(inv_mass)).contiguous()
+
+
+def _transition_setup(ws):
+    """The model of the transition kernels, the logistic-regression kernel's
+    operands, and the warmed state's frozen tuning as the kernels' trailing
+    arguments ``(step, inv_mass, min_micro, max_error)``."""
+    from walnuts_tpu_torch.core.sampler import freeze_params
+    from walnuts_tpu_torch.models.kernels import logistic_regression_vg
+
+    model = logistic_regression_vg(ROWS, DIM, device=DEVICE)
+    params = freeze_params(ws)
+    tail = (params.step_size.contiguous(), params.inv_mass.contiguous(),
+            params.min_micro.contiguous(), MAX_ERROR)
+    return model, (model[2][1], model[2][2][0].contiguous()), tail
+
+
+def _single_draws(one, n: int, seed0: int, key, theta, xy, tail) -> dict:
+    """``n`` draws of every chain from ``theta`` through the
+    single-transition kernel ``one``: per draw the momenta, the start
+    point's value and gradient (the logistic-regression kernel) and one
+    launch, with no host sync from the first draw to the last (the sync
+    debug mode raises on one). Returns the draws, per-chain gradients and
+    depth sums, each launch's milliseconds between two events, and the
+    seconds to enqueue and to finish."""
+    from walnuts_tpu_torch.ops import prng
+    from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
+
+    keys = prng.fold_in(key, torch.arange(n, device=DEVICE))
+    draws = torch.empty((n, CHAINS, DIM), device=DEVICE)
+    n_grads = torch.zeros(CHAINS, dtype=torch.int64, device=DEVICE)
+    depth_sum = torch.zeros(CHAINS, dtype=torch.int64, device=DEVICE)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * n)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    for i in range(n):
+        rho = _momenta(keys[i], (CHAINS, DIM), tail[1])
+        lp0, g0 = logreg_value_grad(theta, *xy)
+        marks[2 * i].record()
+        theta, _, _, depth, ng = one(seed0 + i, theta, rho, lp0, g0, *tail)
+        marks[2 * i + 1].record()
+        draws[i] = theta
+        n_grads += ng
+        depth_sum += depth
+    enqueued = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dict(draws=draws, n_grads=n_grads, depth_sum=depth_sum,
+                kernel_ms=[a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2])],
+                enqueued=enqueued, wall=time.perf_counter() - t0)
+
+
+def run_transition_path(card: str, ref, ws) -> dict:
+    """Sampling from the warmed state ``ws`` through the whole-transition
+    kernels; returns their launches on that run."""
+    from walnuts_tpu_torch.ops import fused_transition as ft
+    from walnuts_tpu_torch.ops import prng
+    from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
+
+    model, xy, tail = _transition_setup(ws)
+    base = prng.key(SEED + 3, DEVICE)
+    one = ft.make_fused_transition(model, DIM, MAX_DEPTH, HALVINGS)
+    block = ft.make_fused_sample_block(model, DIM, MAX_DEPTH, HALVINGS, BLOCK_DRAWS)
+    # load the library and the body's constants outside the timed loops
+    lp0, g0 = logreg_value_grad(ws.theta, *xy)
+    one(0, ws.theta, _momenta(base, (CHAINS, DIM), tail[1]), lp0, g0, *tail)
+
+    # one launch per draw
+    _reset_counts()
+    one.launches = block.launches = 0
+    r = _single_draws(one, TRANSITION_DRAWS, 100, base, ws.theta, xy, tail)
+    if one.launches != TRANSITION_DRAWS:
+        raise AssertionError(f"transition path: {one.launches} launches of the "
+                             f"single-transition kernel for {TRANSITION_DRAWS} draws")
+    total, wall = float(r["n_grads"].sum()), r["wall"]
+    print(f"[transition path] logreg({DIM}) x {CHAINS} chains from the fused "
+          f"route's warmed state, max_depth {MAX_DEPTH}, max_step_halvings "
+          f"{HALVINGS}, max_error {MAX_ERROR}  [{card}]")
+    print(f"[transition path] 5a, {TRANSITION_DRAWS} draws, one launch each: wall "
+          f"{wall:.3f} s ({r['enqueued']:.3f} s to enqueue), "
+          f"{wall / TRANSITION_DRAWS * 1e3:.3f} ms per draw, of which the kernel "
+          f"{np.mean(r['kernel_ms']):.3f} ms (events around each launch; largest "
+          f"{max(r['kernel_ms']):.3f}), 0 host syncs in the loop (sync debug mode "
+          f"raises on one), {total:.0f} gradients, {total / wall:.1f} per s, mean "
+          f"depth {float(r['depth_sum'].sum()) / (CHAINS * TRANSITION_DRAWS):.3f}, "
+          f"largest per-chain n_grads over the run {int(r['n_grads'].max())}  [{card}]")
+    check_posterior(r["draws"].cpu().numpy(), "transition path, 5a", card, ref)
+
+    # one launch per BLOCK_DRAWS draws; each launch's final state must be
+    # the model's at its final point, and its last draw that point
+    def consistent(theta, lp_f, g_f):
+        lp0, g0 = logreg_value_grad(theta, *xy)
+        if lp_f is not None:
+            np.testing.assert_allclose(lp_f.cpu().numpy(), lp0.cpu().numpy(), rtol=1e-3)
+            np.testing.assert_allclose(g_f.cpu().numpy(), g0.cpu().numpy(),
+                                       rtol=1e-3, atol=5e-3)
+        return lp0, g0
+
+    theta, lp_f, g_f = ws.theta, None, None
+    blocks = []
+    for j in range(BLOCK_LAUNCHES):
+        rho = _momenta(prng.fold_in(base, 1000 + j), (BLOCK_DRAWS, CHAINS, DIM),
+                       tail[1][None])
+        lp0, g0 = consistent(theta, lp_f, g_f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, _, theta, g_f, lp_f, ng = block(17 + j, theta, lp0, g0, rho, *tail)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not torch.equal(d[-1], theta):
+            raise AssertionError("transition path: the block's last draw is not "
+                                 "its final point")
+        blocks.append(d.cpu().numpy())
+        total = float(ng.sum())
+        print(f"[transition path] 5b, launch {j} of {BLOCK_DRAWS} draws (seed "
+              f"{17 + j}; momenta and start point made before): wall {wall:.3f} s, "
+              f"{total:.0f} gradients, {total / wall:.1f} per s, "
+              f"{total / (CHAINS * BLOCK_DRAWS):.3f} per chain and draw, largest "
+              f"per-chain n_grads {int(ng.max())}  [{card}]")
+    consistent(theta, lp_f, g_f)
+    if block.launches != BLOCK_LAUNCHES:
+        raise AssertionError(f"transition path: {block.launches} launches of the "
+                             f"sample-block kernel, not {BLOCK_LAUNCHES}")
+    launches = {"fused_transition": one.launches, "fused_sample_block": block.launches,
+                "logreg_value_grad": _counts()["logreg_value_grad"]}
+    print(f"[transition path] final state of every 5b launch: logp and grad "
+          f"within rtol 1e-3 (grad atol 5e-3) of the logistic-regression "
+          f"kernel at the final point, last draw bitwise the final point; "
+          f"launches {json.dumps(launches)}  [{card}]")
+    check_posterior(np.concatenate(blocks), "transition path, 5b", card, ref)
+    return launches
+
+
+def run_transition_ab(card: str, ws, classic: tuple) -> None:
+    """AB_DRAWS draws from the warmed state ``ws`` through each
+    whole-transition kernel, beside the classic path's wall and gradients
+    for as many iterations from the same state (``run_classic_ab``)."""
+    from walnuts_tpu_torch.ops import fused_transition as ft
+    from walnuts_tpu_torch.ops import prng
+    from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
+
+    model, xy, tail = _transition_setup(ws)
+    base = prng.key(SEED + 4, DEVICE)
+    one = ft.make_fused_transition(model, DIM, MAX_DEPTH, HALVINGS)
+    block = ft.make_fused_sample_block(model, DIM, MAX_DEPTH, HALVINGS, AB_DRAWS)
+    r = _single_draws(one, AB_DRAWS, 200, base, ws.theta, xy, tail)
+    wall_a, grads_a = r["wall"], float(r["n_grads"].sum())
+
+    t0 = time.perf_counter()
+    rho = _momenta(prng.fold_in(base, 1000), (AB_DRAWS, CHAINS, DIM), tail[1][None])
+    lp0, g0 = logreg_value_grad(ws.theta, *xy)
+    d, _, _, _, _, ng = block(300, ws.theta, lp0, g0, rho, *tail)
+    torch.cuda.synchronize()
+    wall_b, grads_b = time.perf_counter() - t0, float(ng.sum())
+    if not (torch.isfinite(r["draws"]).all() and torch.isfinite(d).all()):
+        raise AssertionError("transition A/B: draws are not finite")
+    wall_c, grads_c = classic
+    print(f"[transition A/B] {AB_DRAWS} sampling iterations from one warmed state, "
+          f"momenta included: classic path with the integrator kernel: wall "
+          f"{wall_c:.3f} s, {grads_c:.0f} gradients, {grads_c / wall_c:.1f} per s | "
+          f"5a, one launch per draw: wall {wall_a:.3f} s, {grads_a:.0f} gradients, "
+          f"{grads_a / wall_a:.1f} per s | 5b, one launch: wall {wall_b:.3f} s, "
+          f"{grads_b:.0f} gradients (a draw's first evaluation not counted), "
+          f"{grads_b / wall_b:.1f} per s  [{card}]")
 
 
 def profile_window(card: str) -> None:
@@ -800,7 +1101,7 @@ def main() -> None:
     from walnuts_tpu_torch.models.targets import logistic_regression_data
     from walnuts_tpu_torch.ops import _cuda
 
-    names = ("replay", "logreg", "fused_pass", "integrator")
+    names = ("replay", "logreg", "fused_pass", "integrator", "fused_transition")
     t0 = time.perf_counter()
     _cuda.build(*names)
     print(f"[build] {len(names)} libraries, one nvcc each in parallel: "
@@ -818,13 +1119,20 @@ def main() -> None:
     for body in ("std_normal", "ill_conditioned_normal", "funnel"):
         check_integrator(card, body)
     kernels.append(check_integrator(card, "logistic_regression"))
+    for body in ("std_normal", "ill_conditioned_normal", "funnel"):
+        check_transition(card, body)
+    kernels.extend(check_transition(card, "logistic_regression"))
     ref = laplace(*logistic_regression_data(ROWS, DIM))
     launches = run_main_path(card, ref)
     order = ("unfused", "fused", "fused", "unfused") if args.ab else ("unfused", "fused")
     route_launches, warmed = run_fused_route(card, ref, order=order)
     launches["fused_pass"] = route_launches["fused_pass"]
     launches["integrator"] = run_classic_path(card, ref)
-    run_classic_ab(card, warmed)
+    classic = run_classic_ab(card, warmed)
+    path_launches = run_transition_path(card, ref, warmed)
+    launches.update({k: path_launches[k]
+                     for k in ("fused_transition", "fused_sample_block")})
+    run_transition_ab(card, warmed, classic)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if args.profile:

@@ -19,7 +19,15 @@ version's arithmetic product by product (``-fmad=false``) and differ by the
 order of their feature sums only (float32 rtol 1e-4 / atol 1e-4, float64
 1e-9 over up to 256 steps); the logistic-regression body sums its 1000-row
 products in another order than the plain version's matrix products (rtol
-1e-3 / atol 5e-3).
+1e-3 / atol 5e-3). The whole-transition kernels are held to their plain
+versions chain by chain: the decision uniforms are the same hash on both
+sides, so ``depth`` and ``n_grads`` must be equal on at least 0.98 of the
+chains (a chain whose energy error sits at ``max_error`` may take another
+branch through the last bits of ``exp`` / ``log`` or the order of a sum),
+and on those chains theta, grad and logp agree within rtol 1e-3 / atol 5e-3
+(the funnel rtol 5e-3: its gradients reach the hundreds in the neck, and
+over 8 draws at D = 300 the order of a feature sum grew to 1.4e-3 of an
+entry on one of 30000).
 """
 
 import numpy as np
@@ -40,6 +48,7 @@ from walnuts_tpu_torch.core.sampler import (
 from walnuts_tpu_torch.models import kernels
 from walnuts_tpu_torch.models.targets import logistic_regression_data
 from walnuts_tpu_torch.ops import fused_pass as fp
+from walnuts_tpu_torch.ops import fused_transition as ft
 from walnuts_tpu_torch.ops import integrator as integ
 from walnuts_tpu_torch.ops import prng
 from walnuts_tpu_torch.ops.logreg_fused import (
@@ -320,3 +329,131 @@ def test_run_sampling_classic_with_integrator_on_card(cuda):
     assert torch.isfinite(d_k).all() and torch.isfinite(l_k).all()
     same = torch.isclose(d_k, d_p, rtol=1e-3, atol=1e-3).all(-1).all(0)
     assert same.float().mean() > 0.9
+
+
+def test_integrator_kernel_as_before_the_shared_leapfrog_header(cuda):
+    """The leapfrog loop moved into ``csrc/leapfrog.cuh``, which the
+    transition kernels share. At C = 4096 and 0..256 steps the simple
+    bodies still equal the plain version bit for bit in float32, and the
+    logistic-regression body stays within the 1.160e-03 largest absolute
+    difference it had before the move (NVIDIA H100 80GB HBM3)."""
+    for body in ("std_normal", "funnel", "ill_conditioned_normal",
+                 "logistic_regression"):
+        factory, scales, _ = _INTEGRATOR_CASES[body]
+        model = factory(cuda)
+        vg, dim, _ = model
+        args = integ.attempt_tensors(
+            vg, integ.synthetic_attempt_inputs(4096, dim, 2029, **scales),
+            torch.float32, cuda)
+        cur_k, lp_k = integ.make_fused_integrator(model)(*args)
+        cur_p, lp_p = integ.integrate_plain(vg, *args)
+        torch.cuda.synchronize()
+        moved = args[3] > 0
+        if body == "logistic_regression":
+            err = max(float((cur_k - cur_p).abs().max()),
+                      float((lp_k - lp_p)[moved].abs().max()))
+            assert err <= 1.2e-3
+        else:
+            assert torch.equal(cur_k, cur_p)
+            assert torch.equal(lp_k[moved], lp_p[moved])
+
+
+# model -> (factory, input scales)
+_TRANSITION_CASES = {
+    "std_normal": (lambda d, dev: kernels.std_normal_vg(d),
+                   dict(step_range=(0.2, 0.8))),
+    "funnel": (lambda d, dev: kernels.funnel_vg(d),
+               dict(theta_scale=0.5, step_range=(0.05, 0.3))),
+    "ill_conditioned_normal": (
+        lambda d, dev: kernels.ill_conditioned_normal_vg(d, device=dev),
+        dict(step_range=(0.2, 0.8))),
+    "logistic_regression": (
+        lambda d, dev: kernels.logistic_regression_vg(
+            1000 if d == 25 else 200, d, device=dev),
+        dict(theta_scale=0.3, inv_mass_scale=0.005, step_range=(0.3, 1.0))),
+}
+_TRANSITION_TOL = dict(rtol=1e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("num_draws", [None, 1, 8], ids=("5a", "5b-1", "5b-8"))
+@pytest.mark.parametrize("body,dim", [
+    (b, d) for b in ("std_normal", "funnel", "ill_conditioned_normal")
+    for d in (25, 101, 300)] + [("logistic_regression", 25),
+                                ("logistic_regression", 7)])
+def test_transition_kernels_vs_plain(cuda, body, dim, num_draws):
+    """100 chains: no multiple of the 8 chains (logistic regression: 32) a
+    block takes."""
+    c, md, mh = 100, 5, 6
+    factory, scales = _TRANSITION_CASES[body]
+    model = factory(dim, cuda)
+    vg = model[0]
+    t = ft.transition_tensors(vg, ft.synthetic_transition_inputs(
+        c, dim, c + dim, num_draws=num_draws or 1, **scales), cuda)
+    tail = (t["step"], t["inv_mass"], t["min_micro"], 0.5)
+    if num_draws is None:
+        fused = ft.make_fused_transition(model, dim, md, mh)
+        args = (-5, t["theta"], t["rho"][0].contiguous(), t["logp0"], t["grad0"],
+                *tail)
+        want = ft.fused_transition_plain(vg, *args, max_depth=md,
+                                         max_step_halvings=mh)
+        ints, floats = (3, 4), (0, 1, 2)
+    else:
+        fused = ft.make_fused_sample_block(model, dim, md, mh, num_draws)
+        args = (-5, t["theta"], t["logp0"], t["grad0"], t["rho"], *tail)
+        want = ft.fused_sample_block_plain(vg, *args, max_depth=md,
+                                           max_step_halvings=mh)
+        ints, floats = (5,), (0, 1, 2, 3, 4)
+    got = fused(*args)
+    torch.cuda.synchronize()
+    assert fused.launches == 1
+    same = torch.ones(c, dtype=torch.bool, device=cuda)
+    for i in ints:
+        assert got[i].dtype == torch.int32
+        same &= got[i] == want[i]
+    assert same.float().mean() >= 0.98
+    assert int(want[ints[-1]].max()) > int(want[ints[-1]].min())  # chains differ
+    for i in floats:
+        g, w = (x[i].movedim(1, 0) if num_draws and i < 2 else x[i]
+                for x in (got, want))
+        tol = dict(_TRANSITION_TOL, rtol=5e-3) if body == "funnel" else _TRANSITION_TOL
+        np.testing.assert_allclose(g[same].cpu().numpy(), w[same].cpu().numpy(),
+                                   **tol)
+    if num_draws:
+        assert torch.equal(got[0][-1], got[2])  # the last draw is the final point
+
+
+def test_transition_kernels_refuse_bad_input(cuda):
+    model = kernels.std_normal_vg(5)
+    t = ft.transition_tensors(model[0], ft.synthetic_transition_inputs(8, 5, 1), cuda)
+    args = [0, t["theta"], t["rho"][0].contiguous(), t["logp0"], t["grad0"],
+            t["step"], t["inv_mass"], t["min_micro"], 0.5]
+    fused = ft.make_fused_transition(model, 5, 5, 5)
+    with pytest.raises(ValueError, match="min_micro"):
+        fused(*args[:7], t["min_micro"].long(), 0.5)
+    with pytest.raises(ValueError, match="inv_mass"):
+        fused(*args[:6], t["inv_mass"].cpu(), *args[7:])
+    with pytest.raises(ValueError, match="float32"):
+        fused(0, t["theta"].double(), *args[2:])
+    # a value-and-gradient with no device body raises on the card
+    other = kernels.BatchedVG(model[0].fn, "mine", 5)
+    with pytest.raises(ValueError, match="no device body"):
+        ft.make_fused_transition(other, 5, 5, 5)(*args)
+    with pytest.raises(ValueError, match="no device body"):
+        ft.make_fused_sample_block(other, 5, 5, 5, 1)(
+            0, t["theta"], t["logp0"], t["grad0"], t["rho"], *args[5:])
+    assert fused.launches == 0
+
+
+def test_normal_draws_without_a_host_sync(cuda):
+    """Momenta are drawn inside sampling loops: ``prng.normal`` must enqueue
+    its work without waiting for the stream (no tensor made from a host
+    number on the device)."""
+    key = prng.key(3, cuda)
+    want = prng.normal(key, (64, 5), torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prng.normal(key, (64, 5), torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)

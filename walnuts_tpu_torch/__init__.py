@@ -9,11 +9,13 @@ JAX.
 Ported so far: the batched-native ``walnuts()`` path (asynchronous
 adaptive warmup and sampling on one device) and the classic per-draw path
 (``batched=False``, ``integrator=``), four targets, the diagnostics
-(``summary``), and four kernels — the deferred threefry key-split replay
-(``csrc/replay.cu``), the fused logistic-regression value and gradient
-(``csrc/logreg.cu``), the fused tier-2 pass (``csrc/fused_pass.cu``) and
-the fused leapfrog integrator (``csrc/integrator.cu``). ROADMAP.md lists
-what remains.
+(``summary``), and the reference's six kernels — the deferred threefry
+key-split replay (``csrc/replay.cu``), the fused logistic-regression value
+and gradient (``csrc/logreg.cu``), the fused tier-2 pass
+(``csrc/fused_pass.cu``), the fused leapfrog integrator
+(``csrc/integrator.cu``) and the whole-transition kernels
+(``csrc/fused_transition.cu``; ``ops.fused_transition`` exports their two
+entry points, as in the reference). ROADMAP.md lists what remains.
 """
 
 from walnuts_tpu_torch.api import walnuts

@@ -3,7 +3,8 @@
 // Replaces walnuts_tpu/ops/integrator.py::_integrate_kernel
 // (integrator.py:38, launched by _integrate_batch's pallas_call at
 // integrator.py:105) with the model bodies of walnuts_tpu/models/kernels.py.
-// Per chain c, n_steps[c] times:
+// Per chain c, n_steps[c] times (the loop is leapfrog.cuh's, shared with
+// fused_transition.cu):
 //
 //   rho   += dt/2 * grad
 //   theta += dt * inv_mass .* rho
@@ -45,8 +46,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "logreg_chain.cuh"
-#include "models.cuh"
+#include "leapfrog.cuh"
 
 namespace {
 
@@ -74,20 +74,8 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
   Model<T, NR> model;
   model.init(params, D, lane);
-  const T h = dt[c];
-  const T half = T(0.5) * h;
-  const int n = n_steps[c];
-  T lp = static_cast<T>(-INFINITY);
-  for (int i = 0; i < n; ++i) {
-#pragma unroll
-    for (int k = 0; k < NR; ++k) {
-      rh[k] = rh[k] + half * gr[k];
-      th[k] = th[k] + (h * im[k]) * rh[k];
-    }
-    lp = model.vg(th, gr, lane);
-#pragma unroll
-    for (int k = 0; k < NR; ++k) rh[k] = rh[k] + half * gr[k];
-  }
+  const T lp =
+      wt::leapfrog_strided(th, rh, gr, im, model, dt[c], n_steps[c], lane);
 #pragma unroll
   for (int k = 0; k < NR; ++k) {
     const int j = lane + 32 * k;
@@ -135,24 +123,8 @@ __global__ void __launch_bounds__(WARPS * 32)
       gr[k] = in ? cur[row + 2 * P + k] : 0.f;
       im[k] = in ? inv_mass[static_cast<size_t>(c) * P + k] : 0.f;
     }
-    const float h = dt[c];
-    const float half = 0.5f * h;
-    const int n = n_steps[c];
-    float lp = -INFINITY;
-    for (int i = 0; i < n; ++i) {
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        rh[k] = rh[k] + half * gr[k];
-        th[k] = th[k] + (h * im[k]) * rh[k];
-        gr[k] = 0.f;
-      }
-      float lacc = 0.f;
-      wt::logreg_accumulate(xs, ys, N, lane, th, gr, lacc);
-      wt::logreg_reduce(gr, lacc);
-      lp = wt::logreg_finish(th, gr, lacc);
-#pragma unroll
-      for (int k = 0; k < KP; ++k) rh[k] = rh[k] + half * gr[k];
-    }
+    const float lp = wt::leapfrog_logreg(th, rh, gr, im, xs, ys, N, dt[c],
+                                         n_steps[c], lane);
     // lane k stores feature k of the three rows
 #pragma unroll
     for (int k = 0; k < KP; ++k) {

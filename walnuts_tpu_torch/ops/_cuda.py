@@ -30,9 +30,11 @@ NVCC_FLAGS = (
 
 # flags beyond NVCC_FLAGS, per library: the fused pass draws normals through
 # threefry.cuh's polynomials, and the integrator's leapfrog and simple model
-# bodies repeat their plain versions' arithmetic; both must round each
+# bodies repeat their plain versions' arithmetic, and so do the transition
+# kernels' energies, U-turn products and log-sum-exp; all must round each
 # product as PyTorch does
-_EXTRA_FLAGS = {"fused_pass": ("-fmad=false",), "integrator": ("-fmad=false",)}
+_EXTRA_FLAGS = {"fused_pass": ("-fmad=false",), "integrator": ("-fmad=false",),
+                "fused_transition": ("-fmad=false",)}
 
 # C entry points: every pointer, and the stream, as c_void_p
 _SIGNATURES = {
@@ -54,6 +56,13 @@ _SIGNATURES = {
         # body, is_double; two scalar parameters; n_data; stream
         "wt_integrate": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
         + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p],
+    },
+    "fused_transition": {
+        # the address of a TransitionArgs struct (ops/fused_transition.py),
+        # stream
+        "wt_fused_transition": [ctypes.c_void_p, ctypes.c_void_p],
+        "wt_fused_sample_block": [ctypes.c_void_p, ctypes.c_void_p],
+        "wt_transition_args_size": [],
     },
 }
 

@@ -41,8 +41,35 @@ MAX_DIM = 1024
 #: memory, whole, once per launch
 MAX_LOGREG_ROWS = 1024
 
-_BODIES = {"std_normal": 0, "funnel": 1, "ill_conditioned_normal": 2,
-           "logistic_regression": 3}
+#: the device bodies of ``csrc/models.cuh`` and ``csrc/logreg_chain.cuh``
+#: (``wt::Body``), by the name a ``BatchedVG`` carries
+BODIES = {"std_normal": 0, "funnel": 1, "ill_conditioned_normal": 2,
+          "logistic_regression": 3}
+
+
+def kernel_consts(vg, device, dtype) -> tuple:
+    """The constants of ``vg``'s device body as a kernel takes them: none,
+    the ill-conditioned normal's ``inv_var (D,)`` in ``dtype``, or logistic
+    regression's ``x (N, P)`` and ``y (N,)`` in float32."""
+    body, consts = vg.body, vg.consts
+    if body == "ill_conditioned_normal":
+        return (consts[0].reshape(-1).to(device=device, dtype=dtype).contiguous(),)
+    if body == "logistic_regression":
+        return (consts[1].to(device=device, dtype=torch.float32).contiguous(),
+                consts[2].reshape(-1).to(device=device, dtype=torch.float32)
+                .contiguous())
+    return ()
+
+
+def body_scalars(vg, d: int) -> Tuple[float, float, int]:
+    """The scalar parameters of ``vg``'s device body: the funnel's
+    ``1 / scale^2`` and ``0.5 (D - 1)``, logistic regression's row count."""
+    if vg.body == "funnel":
+        scale = vg.params["scale"]
+        return 1.0 / (scale * scale), 0.5 * (d - 1), 0
+    if vg.body == "logistic_regression":
+        return 0.0, 0.0, vg.params["num_data"]
+    return 0.0, 0.0, 0
 
 
 def integrate_plain(vg: Callable, cur, inv_mass, dt, n_steps, max_steps=None
@@ -113,25 +140,6 @@ class FusedIntegrator:
         self.launches = 0
         self._consts = {}  # (device, dtype) -> the body's constant tensors
 
-    def _kernel_consts(self, device, dtype):
-        """The body's constants as the kernel takes them: none, the
-        ill-conditioned normal's ``inv_var (D,)`` in the cursor's dtype, or
-        logistic regression's ``x (N, P)`` and ``y (N,)`` in float32."""
-        got = self._consts.get((device, dtype))
-        if got is None:
-            body, consts = self.vg.body, self.vg.consts
-            if body == "ill_conditioned_normal":
-                got = (consts[0].reshape(-1).to(device=device, dtype=dtype)
-                       .contiguous(),)
-            elif body == "logistic_regression":
-                got = (consts[1].to(device=device, dtype=torch.float32).contiguous(),
-                       consts[2].reshape(-1).to(device=device, dtype=torch.float32)
-                       .contiguous())
-            else:
-                got = ()
-            self._consts[(device, dtype)] = got
-        return got
-
     def __call__(self, cur, inv_mass, dt, n_steps):
         vg = self.vg
         c, d = _check("fused integrator", cur, inv_mass, dt, n_steps)
@@ -156,11 +164,11 @@ class FusedIntegrator:
                     f"rows; got {d} and {n}")
         if cur.device.type == "cpu":
             return integrate_plain(vg, cur, inv_mass, dt, n_steps)
-        if body not in _BODIES:
+        if body not in BODIES:
             raise ValueError(
                 f"fused integrator: no device body for {body!r} in "
                 f"csrc/models.cuh; on CUDA tensors the model must be one of "
-                f"{sorted(_BODIES)} (use make_plain_integrator to integrate "
+                f"{sorted(BODIES)} (use make_plain_integrator to integrate "
                 f"any vg with tensor operations)")
         from walnuts_tpu_torch.ops import _cuda
 
@@ -169,21 +177,18 @@ class FusedIntegrator:
         lp = torch.empty_like(dt)
         if c == 0:
             return cur_out, lp
-        consts = self._kernel_consts(cur.device, cur.dtype)
+        consts = self._consts.get((cur.device, cur.dtype))
+        if consts is None:
+            consts = self._consts[(cur.device, cur.dtype)] = kernel_consts(
+                vg, cur.device, cur.dtype)
         ptrs = [t.data_ptr() for t in consts] + [None] * (2 - len(consts))
-        p0 = p1 = 0.0
-        n_data = 0
-        if body == "funnel":
-            scale = vg.params["scale"]
-            p0, p1 = 1.0 / (scale * scale), 0.5 * (d - 1)
-        elif body == "logistic_regression":
-            n_data = vg.params["num_data"]
+        p0, p1, n_data = body_scalars(vg, d)
         with torch.cuda.device(cur.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.wt_integrate(
                 cur.data_ptr(), inv_mass.data_ptr(), dt.data_ptr(),
                 n_steps.data_ptr(), ptrs[0], ptrs[1], cur_out.data_ptr(),
-                lp.data_ptr(), c, d, _BODIES[body],
+                lp.data_ptr(), c, d, BODIES[body],
                 int(cur.dtype == torch.float64), p0, p1, n_data, stream)
         _cuda.check(err, "wt_integrate")
         self.launches += 1
@@ -246,10 +251,14 @@ def attempt_tensors(vg: Callable, inputs: dict, dtype, device):
 
 
 __all__ = [
+    "BODIES",
     "MAX_DIM",
+    "MAX_LOGREG_ROWS",
     "FusedIntegrator",
     "attempt_tensors",
+    "body_scalars",
     "integrate_plain",
+    "kernel_consts",
     "make_fused_integrator",
     "make_plain_integrator",
     "synthetic_attempt_inputs",

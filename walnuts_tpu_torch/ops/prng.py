@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -235,11 +236,14 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 def normal_from_bits(x0, x1, dtype) -> torch.Tensor:
     """jax's normal transform of random bits: ``sqrt(2) * erf_inv(u)``
     with ``u`` uniform on ``[nextafter(-1, 0), 1)`` (``_normal_real``)."""
-    one = torch.tensor(1.0, dtype=dtype, device=x0.device)
-    lo = torch.nextafter(-one, torch.zeros_like(one))
+    # the constants are rounded to ``dtype`` on the host and enter as
+    # Python scalars: a tensor made from a host number on the device would
+    # be a copy that waits for the stream, once per call
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    lo = np.nextafter(ft(-1.0), ft(0.0))
     u = uniform_from_bits(x0, x1, dtype)
-    u = torch.maximum(u * (one - lo) + lo, lo)
-    return torch.tensor(math.sqrt(2.0), dtype=dtype, device=x0.device) * erf_inv(u)
+    u = torch.clamp(u * float(ft(1.0) - lo) + float(lo), min=float(lo))
+    return float(ft(math.sqrt(2.0))) * erf_inv(u)
 
 
 def normal(key_data: torch.Tensor, shape, dtype) -> torch.Tensor:
