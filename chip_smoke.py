@@ -26,7 +26,10 @@ with the fused model kernel, 4096 chains, float32:
 
 Each path's draws must be finite, and their pooled posterior mean and sd
 must agree with NumPy references (a Newton MAP, its Laplace sd, and the
-importance-reweighted Laplace mean).
+importance-reweighted Laplace mean). Kernels 3, 5a and 5b are also timed
+on their own paths, beside the bound of those launches: kernel 3 by
+relaunching the classic A/B's kernel launches on their recorded operands
+under ``torch.profiler``, 5a and 5b by CUDA events around each launch.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile] [--ab]
 
@@ -38,13 +41,16 @@ failed phase raises (non-zero exit). The last line of standard output is
 route, launches on its path, error against its plain version, times and
 bound (the integrator's and the transition kernels' with their
 logistic-regression body; their three other bodies are checked and printed
-on earlier lines).
+on earlier lines), the logistic-regression kernel's two ``torch.matmul``
+products (``matmul_ms``), and the time and bound of a launch on the path
+(``path_ms``, ``path_bound_ms``) for kernels 3, 5a and 5b.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -138,6 +144,31 @@ def profiled_ms(fn, kernel: str, reps: int = 50) -> float | None:
     return sum(h[0] for h in hits) / sum(h[1] for h in hits) / 1e3
 
 
+def ptxas_report(log: str) -> list:
+    """``(kernel, registers, spill store bytes)`` per kernel from nvcc's
+    ``-Xptxas -v`` log, names demangled by ``c++filt`` where it exists."""
+    rows, fn, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            rows.append((fn, int(m.group(1)), spill))
+            fn, spill = None, 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [r[0] for r in rows]
+    short = [re.sub(r"^.*?(\w+(?:<[^()]*>)?)\(.*$", r"\1", n) for n in names]
+    return [(n, r[1], r[2]) for n, r in zip(short, rows)]
+
+
 def bound(nbytes: float, ops: float) -> tuple:
     """The least time (ms) the card could take: the larger of the bytes
     over HBM's rate and the operations over the float32 rate."""
@@ -199,8 +230,14 @@ def check_logreg(card: str) -> dict:
     theta = torch.from_numpy(
         (0.3 * rng.standard_normal((CHAINS, DIM))).astype(np.float32)).to(DEVICE)
     lp_k, g_k = logreg_value_grad(theta, x_t, y_t)
+    lp_2, g_2 = logreg_value_grad(theta, x_t, y_t)
     lp_p, g_p = logreg_value_grad_plain(theta, x_t, y_t)
     torch.cuda.synchronize()
+    # a fixed order of every sum, no atomics: a launch repeats bit for bit
+    repeat = torch.equal(lp_k, lp_2) and torch.equal(g_k, g_2)
+    print(f"[logreg] two launches on the same inputs bitwise equal: {repeat}  [{card}]")
+    if not repeat:
+        raise AssertionError("logreg kernel: two launches on the same inputs differ")
     lp_k, g_k, lp_p, g_p = (t.cpu().numpy() for t in (lp_k, g_k, lp_p, g_p))
     np.testing.assert_allclose(lp_k, lp_p, rtol=1e-5)
     np.testing.assert_allclose(g_k, g_p, rtol=1e-4, atol=2e-3)
@@ -209,7 +246,7 @@ def check_logreg(card: str) -> dict:
     dev_ms = profiled_ms(lambda: logreg_value_grad(theta, x_t, y_t), "logreg_kernel")
     plain_ms = time_ms(lambda: logreg_value_grad_plain(theta, x_t, y_t))
     # no single PyTorch call computes the function; the plain version's two
-    # matrix products are the nearest library yardstick
+    # matrix products are the nearest library yardstick (matmul_ms)
     z = torch.empty((CHAINS, ROWS), device=DEVICE)
     mm_ms = time_ms(lambda: (torch.matmul(theta, x_t.T, out=z), z @ x_t))
     # two products of 2 * B * N * P flops; theta, X, y read, lp and grad written
@@ -225,7 +262,8 @@ def check_logreg(card: str) -> dict:
                 source="walnuts_tpu_torch/csrc/logreg.cu",
                 replaces="walnuts_tpu/ops/pallas_kernels.py:31",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                matmul_ms=mm_ms)
 
 
 def _pass_case(dim: int, seed: int):
@@ -826,11 +864,49 @@ def count_attempt_ops(card: str, logp_grad, fused, params, ss) -> None:
           f"done {Count.n} more  [{card}]")
 
 
+class _Recording:
+    """An attempt integrator that keeps a copy of every call's operands."""
+
+    def __init__(self, integrator):
+        self.integrator, self.calls = integrator, []
+
+    def __call__(self, *args):
+        self.calls.append(tuple(a.clone() for a in args))
+        return self.integrator(*args)
+
+
+def path_integrator_ms(card: str, fused, calls) -> dict:
+    """Kernel 3 at the classic path's own operands: every launch of the
+    kernel route relaunched under ``torch.profiler`` (device time of the
+    kernel alone; CUDA events over the relaunches where the profiler sees
+    none), and the bound of those launches' steps."""
+    def relaunch():
+        for a in calls:
+            fused(*a)
+
+    ms = profiled_ms(relaunch, "integrate_logreg_kernel", reps=1)
+    how = "torch.profiler"
+    if ms is None:
+        ms = time_ms(relaunch, reps=1, warmup=1) / len(calls)
+        how = "CUDA events"
+    steps = sum(int(a[3].sum()) for a in calls)
+    nbytes = 4.0 * (7 * CHAINS * DIM + 3 * CHAINS + ROWS * DIM + ROWS) * len(calls)
+    bound_ms, bound_by = bound(nbytes, float(steps) * (7 * DIM + 4 * ROWS * DIM))
+    bound_ms /= len(calls)
+    print(f"[classic A/B] kernel 3 on the classic path: the kernel route's "
+          f"{len(calls)} launches relaunched on their own operands ({steps} chain "
+          f"steps, {steps / len(calls) / CHAINS:.2f} a chain and launch): "
+          f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
+          f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
+    return dict(path_ms=ms, path_bound_ms=bound_ms)
+
+
 def run_classic_ab(card: str, ws) -> tuple:
     """20 classic sampling iterations from the warmed state ``ws`` (the
     fused route's), with the kernel and with the plain integrator of the
     same value-and-gradient. Returns the kernel route's wall seconds and
-    gradients."""
+    gradients, and kernel 3's time and bound on the path
+    (:func:`path_integrator_ms`)."""
     from walnuts_tpu_torch.config import SamplingConfig
     from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
     from walnuts_tpu_torch.models.kernels import logistic_regression_vg
@@ -849,7 +925,10 @@ def run_classic_ab(card: str, ws) -> tuple:
     params, ss = freeze_params(ws), init_sample_state(ws)
     count_attempt_ops(card, logp_grad, fused, params, ss)
     runs = {}
-    for name, integrator in (("kernel", fused),
+    # the kernel route keeps its operands (4 copies an attempt beside the
+    # ~850 operations of the attempt) for path_integrator_ms
+    recording = _Recording(fused)
+    for name, integrator in (("kernel", recording),
                              ("plain", make_plain_integrator(model[0]))):
         torch.cuda.synchronize()
         fused.launches = 0
@@ -876,8 +955,9 @@ def run_classic_ab(card: str, ws) -> tuple:
           f"{same_draws.mean():.4f}, all three "
           f"{(same_key & same_grads & same_draws).mean():.4f} of {CHAINS} "
           f"(reported only)  [{card}]")
+    path = path_integrator_ms(card, fused, recording.calls)
     # info.n_grads goes on from the warmed state's counts
-    return wall_k, float(np.sum(g_k)) - float(ss.n_grads.sum())
+    return wall_k, float(np.sum(g_k)) - float(ss.n_grads.sum()), path
 
 
 def _momenta(key, shape, inv_mass):
@@ -960,6 +1040,14 @@ def run_transition_path(card: str, ref, ws) -> dict:
         raise AssertionError(f"transition path: {one.launches} launches of the "
                              f"single-transition kernel for {TRANSITION_DRAWS} draws")
     total, wall = float(r["n_grads"].sum()), r["wall"]
+    # the bound of a launch on the path, as check_transition's without the
+    # attempts' U-turn passes (the kernel does not report its attempts): the
+    # evaluations the kernel made (n_grads counts each start point) times the
+    # body's and the leapfrog's operations, and the operands' bytes
+    ops_eval = 7 * DIM + 4 * ROWS * DIM
+    consts = ROWS * DIM + ROWS
+    bound_a, _ = bound(4.0 * (CHAINS * DIM * 6 + CHAINS * 6 + consts),
+                       (total - CHAINS * TRANSITION_DRAWS) / TRANSITION_DRAWS * ops_eval)
     print(f"[transition path] logreg({DIM}) x {CHAINS} chains from the fused "
           f"route's warmed state, max_depth {MAX_DEPTH}, max_step_halvings "
           f"{HALVINGS}, max_error {MAX_ERROR}  [{card}]")
@@ -970,8 +1058,12 @@ def run_transition_path(card: str, ref, ws) -> dict:
           f"{max(r['kernel_ms']):.3f}), 0 host syncs in the loop (sync debug mode "
           f"raises on one), {total:.0f} gradients, {total / wall:.1f} per s, mean "
           f"depth {float(r['depth_sum'].sum()) / (CHAINS * TRANSITION_DRAWS):.3f}, "
-          f"largest per-chain n_grads over the run {int(r['n_grads'].max())}  [{card}]")
+          f"largest per-chain n_grads over the run {int(r['n_grads'].max())}; "
+          f"bound {bound_a * 1e3:.3f} us a launch, {bound_a / np.mean(r['kernel_ms']):.4f} "
+          f"of the kernel's time  [{card}]")
     check_posterior(r["draws"].cpu().numpy(), "transition path, 5a", card, ref)
+    path = {"fused_transition": dict(path_ms=float(np.mean(r["kernel_ms"])),
+                                     path_bound_ms=bound_a)}
 
     # one launch per BLOCK_DRAWS draws; each launch's final state must be
     # the model's at its final point, and its last draw that point
@@ -984,26 +1076,33 @@ def run_transition_path(card: str, ref, ws) -> dict:
         return lp0, g0
 
     theta, lp_f, g_f = ws.theta, None, None
-    blocks = []
+    blocks, block_ms, block_bound = [], [], []
     for j in range(BLOCK_LAUNCHES):
         rho = _momenta(prng.fold_in(base, 1000 + j), (BLOCK_DRAWS, CHAINS, DIM),
                        tail[1][None])
         lp0, g0 = consistent(theta, lp_f, g_f)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        d, _, theta, g_f, lp_f, ng = block(17 + j, theta, lp0, g0, rho, *tail)
-        torch.cuda.synchronize()
+        (d, _, theta, g_f, lp_f, ng), ms = _event_ms(
+            lambda: block(17 + j, theta, lp0, g0, rho, *tail))
         wall = time.perf_counter() - t0
         if not torch.equal(d[-1], theta):
             raise AssertionError("transition path: the block's last draw is not "
                                  "its final point")
         blocks.append(d.cpu().numpy())
-        total = float(ng.sum())
+        total = float(ng.sum())  # the evaluations the launch made
+        bound_b, bound_by = bound(
+            4.0 * (CHAINS * DIM * (5 + 2 * BLOCK_DRAWS)
+                   + CHAINS * (6 + BLOCK_DRAWS) + consts), total * ops_eval)
+        block_ms.append(ms)
+        block_bound.append(bound_b)
         print(f"[transition path] 5b, launch {j} of {BLOCK_DRAWS} draws (seed "
               f"{17 + j}; momenta and start point made before): wall {wall:.3f} s, "
-              f"{total:.0f} gradients, {total / wall:.1f} per s, "
-              f"{total / (CHAINS * BLOCK_DRAWS):.3f} per chain and draw, largest "
-              f"per-chain n_grads {int(ng.max())}  [{card}]")
+              f"kernel {ms:.3f} ms (events), {total:.0f} gradients, "
+              f"{total / wall:.1f} per s, {total / (CHAINS * BLOCK_DRAWS):.3f} per "
+              f"chain and draw, largest per-chain n_grads {int(ng.max())}; bound "
+              f"{bound_b:.3f} ms ({bound_by}), {bound_b / ms:.4f} of the kernel's "
+              f"time  [{card}]")
     consistent(theta, lp_f, g_f)
     if block.launches != BLOCK_LAUNCHES:
         raise AssertionError(f"transition path: {block.launches} launches of the "
@@ -1015,7 +1114,9 @@ def run_transition_path(card: str, ref, ws) -> dict:
           f"kernel at the final point, last draw bitwise the final point; "
           f"launches {json.dumps(launches)}  [{card}]")
     check_posterior(np.concatenate(blocks), "transition path, 5b", card, ref)
-    return launches
+    path["fused_sample_block"] = dict(path_ms=float(np.mean(block_ms)),
+                                      path_bound_ms=float(np.mean(block_bound)))
+    return launches, path
 
 
 def run_transition_ab(card: str, ws, classic: tuple) -> None:
@@ -1041,7 +1142,7 @@ def run_transition_ab(card: str, ws, classic: tuple) -> None:
     wall_b, grads_b = time.perf_counter() - t0, float(ng.sum())
     if not (torch.isfinite(r["draws"]).all() and torch.isfinite(d).all()):
         raise AssertionError("transition A/B: draws are not finite")
-    wall_c, grads_c = classic
+    wall_c, grads_c, _ = classic
     print(f"[transition A/B] {AB_DRAWS} sampling iterations from one warmed state, "
           f"momenta included: classic path with the integrator kernel: wall "
           f"{wall_c:.3f} s, {grads_c:.0f} gradients, {grads_c / wall_c:.1f} per s | "
@@ -1110,9 +1211,8 @@ def main() -> None:
         _cuda.library(name)
         b = _cuda.BUILD_INFO[name]
         print(f"[build] {name}: {b['seconds']:.2f} s -> {b['path']}")
-        for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for kernel, regs, spill in ptxas_report(b["log"]):
+            print(f"[build]   {kernel}: {regs} registers, {spill} bytes spill stores")
 
     kernels = [check_replay(card), check_logreg(card), check_fused_pass(card, DIM)]
     check_fused_pass(card, 101)
@@ -1129,21 +1229,25 @@ def main() -> None:
     launches["fused_pass"] = route_launches["fused_pass"]
     launches["integrator"] = run_classic_path(card, ref)
     classic = run_classic_ab(card, warmed)
-    path_launches = run_transition_path(card, ref, warmed)
+    path_launches, path = run_transition_path(card, ref, warmed)
+    path["integrator"] = classic[2]
     launches.update({k: path_launches[k]
                      for k in ("fused_transition", "fused_sample_block")})
     run_transition_ab(card, warmed, classic)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k.update(path.get(k["name"], {}))
     if args.profile:
         profile_window(card)
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all  [{card}]")
-    print(json.dumps({"kernels": [
-        {key: k[key] for key in ("name", "route", "source", "replaces",
-                                 "launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")}
-        for k in kernels
-    ]}))
+    # the contract's keys, then kernel 2's matrix products and the time and
+    # bound of a launch on the kernel's own path where they differ from the
+    # check's synthetic inputs (kernels 3, 5a, 5b)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "matmul_ms",
+            "path_ms", "path_bound_ms")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
+                                  for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

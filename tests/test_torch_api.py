@@ -52,8 +52,8 @@ def _assert_counts_equal(ji, ti):
 def test_funnel_matches_reference():
     jo, ji, to, ti = _run_both(
         jax_funnel(5)[0], funnel(5)[0], num_params=5, num_chains=4, seed=11,
-        min_warmup_iter=25, max_warmup_iter=25, min_sampling_iter=25,
-        max_sampling_iter=25)
+        min_warmup_iter=15, max_warmup_iter=15, min_sampling_iter=15,
+        max_sampling_iter=15)
     _assert_counts_equal(ji, ti)
     np.testing.assert_allclose(_stack(to), _stack(jo), rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose([c.warmup.stepsize for c in to],
@@ -68,11 +68,11 @@ def test_fused_logreg_matches_reference():
     jo, ji, to, ti = _run_both(
         jax_fused(interpret=True)[0], logistic_regression_fused(device="cpu")[0],
         num_params=25, num_chains=2, seed=3, fused=True,
-        min_warmup_iter=10, max_warmup_iter=10, min_sampling_iter=15,
-        max_sampling_iter=15)
+        min_warmup_iter=8, max_warmup_iter=8, min_sampling_iter=10,
+        max_sampling_iter=10)
     _assert_counts_equal(ji, ti)
     draws = _stack(to)
-    assert draws.shape == (2, 15, 25) and np.isfinite(draws).all()
+    assert draws.shape == (2, 10, 25) and np.isfinite(draws).all()
     np.testing.assert_allclose(draws, _stack(jo), atol=1e-4)
     np.testing.assert_allclose([c.warmup.stepsize for c in to],
                                [c.warmup.stepsize for c in jo], rtol=1e-4)

@@ -10,7 +10,7 @@ counters and the trip counters (the reference counts the same batched
 trips and tier-2 passes). Floats differ only by summation order and the
 last bits of ``exp``/``log`` between XLA and PyTorch (and the normals'
 ulps, see test_torch_prng.py), so draws and log densities are held to
-rtol 1e-10 over the 30-draw block, and warmup's adapted floats to rtol
+rtol 1e-10 over the 20-draw block, and warmup's adapted floats to rtol
 1e-9 (the reference's own warmup rule).
 """
 
@@ -34,8 +34,8 @@ from walnuts_tpu_torch.models import funnel
 from walnuts_tpu_torch.ops.math import make_logp_grad
 
 C = 16
-DRAWS = 30
-WARMUP_BLOCK = 20
+DRAWS = 20
+WARMUP_BLOCK = 12
 
 
 def _np_tree(tree):
@@ -51,7 +51,8 @@ def ref():
     """Reference warmup (two asynchronous blocks) and one sampling block."""
     logp, dim = jax_funnel(11)
     lg = jax_logp_grad(logp)
-    wcfg = WarmupConfig(min_iter=40, max_iter=40, block_size=WARMUP_BLOCK)
+    wcfg = WarmupConfig(min_iter=2 * WARMUP_BLOCK, max_iter=2 * WARMUP_BLOCK,
+                        block_size=WARMUP_BLOCK)
     scfg = SamplingConfig(min_iter=DRAWS, max_iter=DRAWS, block_size=DRAWS,
                           max_step_halvings=8)
     base = jax.random.key(7)

@@ -115,7 +115,7 @@ def test_transition_matches_reference(route, adapt):
 def _std_normal_setup():
     C, dim = 8, 3
     wcfg = WarmupConfig(min_iter=20, max_iter=20, block_size=20)
-    scfg = SamplingConfig(min_iter=60, max_iter=60, block_size=60,
+    scfg = SamplingConfig(min_iter=30, max_iter=30, block_size=30,
                           max_trajectory_doublings=4, max_step_halvings=4)
     rng = np.random.default_rng(8)
     theta0 = rng.standard_normal((C, dim))
@@ -127,7 +127,7 @@ def _std_normal_setup():
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_warmup_and_sampling_match_reference(route):
-    """Std normal(3) x 8 chains, 20 warmup + 60 sampling iterations."""
+    """Std normal(3) x 8 chains, 20 warmup + 30 sampling iterations."""
     C, dim, wcfg, scfg, ws0 = _std_normal_setup()
     ws0_np = _np_tree(ws0)  # before the reference run donates its buffers
 
@@ -163,7 +163,7 @@ def test_warmup_and_sampling_match_reference(route):
     np.testing.assert_array_equal(info_p.n_grads, info.n_grads)
     for name in ("n_halve_fail", "n_nonfinite", "n_depth_exhausted"):
         np.testing.assert_array_equal(getattr(info_p, name), getattr(info, name))
-    assert (info_p.warmup_iters, info_p.sampling_iters) == (20, 60)
+    assert (info_p.warmup_iters, info_p.sampling_iters) == (20, 30)
     np.testing.assert_allclose(draws_p.numpy(), np.asarray(draws), rtol=1e-9,
                                atol=1e-12)
     np.testing.assert_allclose(logps_p.numpy(), np.asarray(logps), rtol=1e-9,

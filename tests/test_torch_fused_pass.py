@@ -131,7 +131,7 @@ def test_one_pass_matches_reference(D, max_depth, cap, R):
 # the slice: run_sampling with the fused pass
 # ---------------------------------------------------------------------------
 
-DRAWS = 20
+DRAWS = 10
 
 
 def _np_tree(tree):

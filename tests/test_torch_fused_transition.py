@@ -102,18 +102,18 @@ def _models(name, dim):
 
 # model, D, chains, max_depth, max_step_halvings, transitions, input scales
 CASES = {
-    "std_normal": ("std_normal", 4, 64, 6, 6, 6,
+    "std_normal": ("std_normal", 4, 64, 6, 6, 4,
                    dict(step_range=(0.5, 0.5), max_min_micro=1, unit_mass=True)),
-    "halving_reversibility": ("std_normal", 3, 64, 6, 6, 6,
+    "halving_reversibility": ("std_normal", 3, 64, 6, 6, 4,
                               dict(step_range=(2.5, 2.5), max_min_micro=1,
                                    unit_mass=True)),
     "min_micro_4": ("std_normal", 3, 64, 5, 5, 4,
                     dict(step_range=(0.25, 0.25), min_micro=4, unit_mass=True)),
     "ill_conditioned_mass_and_steps": (
-        "ill_conditioned_normal", 6, 64, 5, 6, 6,
+        "ill_conditioned_normal", 6, 64, 5, 6, 4,
         dict(step_range=(0.5, 1.6), max_min_micro=2, theta_scale=2.0,
              true_mass=True)),
-    "funnel": ("funnel", 5, 64, 5, 6, 6,
+    "funnel": ("funnel", 5, 64, 5, 6, 4,
                dict(step_range=(0.1, 0.5), max_min_micro=2, theta_scale=0.7)),
     "logistic_regression": ("logistic_regression", 5, 64, 5, 6, 5,
                             dict(step_range=(0.1, 0.4), max_min_micro=2,
@@ -266,9 +266,9 @@ def test_fused_sample_block_matches_reference(case):
 
 
 def test_port_alone_std_normal_moments():
-    """A guard that needs no JAX run: 300 transitions of the port on the
-    standard normal (D = 4, 64 chains, step 0.5) keep its moments."""
-    dim, chains, iters = 4, 64, 300
+    """A guard that needs no JAX run: 150 transitions of the port on the
+    standard normal (D = 4, 128 chains, step 0.5) keep its moments."""
+    dim, chains, iters = 4, 128, 150
     model = kernels.std_normal_vg(dim)
     vg = model[0]
     port = ft.make_fused_transition(model, dim, 6, 6)
@@ -285,7 +285,7 @@ def test_port_alone_std_normal_moments():
                                      MAX_ERROR)
         draws.append(theta.numpy())
         depths.append(depth.numpy())
-    d = np.stack(draws)[60:].reshape(-1, dim)
+    d = np.stack(draws)[30:].reshape(-1, dim)
     assert np.abs(d.mean(0)).max() < 0.08
     assert np.abs(d.var(0) - 1.0).max() < 0.12
     depths = np.stack(depths)

@@ -7,7 +7,7 @@ tests/test_torch_gpu.py -q`` (``--noconftest`` keeps the suite's JAX setup
 out). The replay kernel is integer arithmetic and must be bitwise equal;
 the logistic-regression kernel sums in another order than the plain
 version's matrix products, so it is held to ``tests/test_pallas.py``'s
-float32 tolerances. The fused tier-2 pass kernel is held to its plain
+float32 tolerances, at every padded width, and must repeat bit for bit. The fused tier-2 pass kernel is held to its plain
 version on the same synthetic lane states: integers, flags and keys equal
 on every lane; rows to a few ulp (the restart's normals run the same
 polynomial, rounded step by step on both sides); per-lane floats to rtol
@@ -127,7 +127,42 @@ def test_logreg_kernel_other_widths(cuda):
                                    rtol=1e-4, atol=2e-3 * n / 1000)
 
 
+def _logreg_case(b, p, n, seed, device):
+    """theta (b, p) ~ 0.3 N(0, 1), X (n, p) ~ N(0, 1), labels +-1, float32."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return (t(0.3 * rng.standard_normal((b, p))), t(rng.standard_normal((n, p))),
+            t(np.where(rng.random(n) < 0.5, -1.0, 1.0)))
+
+
+@pytest.mark.parametrize("n", [1, 12, 1000, 1024, 1500])
+@pytest.mark.parametrize("p", [1, 4, 7, 25, 28, 29, 32])
+def test_logreg_kernel_vs_plain_every_width(cuda, p, n):
+    """Every padded width (P rounded up to 4), rows within one staged chunk
+    and over several (1500), and chain counts around the 32-chain tile."""
+    for b in (1, 31, 33, 4096, 4097):
+        theta, x, y = _logreg_case(b, p, n, 1000 * p + n + b, cuda)
+        lp_p, g_p = logreg_value_grad_plain(theta, x, y)
+        lp_k, g_k = logreg_value_grad(theta, x, y)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(lp_k.cpu().numpy(), lp_p.cpu().numpy(),
+                                   rtol=1e-5, err_msg=f"B={b}")
+        np.testing.assert_allclose(g_k.cpu().numpy(), g_p.cpu().numpy(),
+                                   rtol=1e-4, atol=2e-3 * n / 1000, err_msg=f"B={b}")
+
+
+def test_logreg_kernel_repeats_bitwise(cuda):
+    """Every sum in a fixed order, no atomics: two launches agree bit for bit."""
+    theta, x, y = _logreg_case(4096, 25, 1000, 7, cuda)
+    first = logreg_value_grad(theta, x, y)
+    second = logreg_value_grad(theta, x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
 def test_logreg_kernel_refuses_bad_input(cuda):
+    from walnuts_tpu_torch.ops import _cuda
+
     design, y = logistic_regression_data()
     x_t, y_t = logreg_tensors(design, y, cuda)
     theta = torch.zeros((4, 25), device=cuda)
@@ -136,6 +171,14 @@ def test_logreg_kernel_refuses_bad_input(cuda):
     with pytest.raises(ValueError, match="features"):
         wide = torch.zeros((4, 33), device=cuda)
         logreg_value_grad(wide, torch.zeros((10, 33), device=cuda), y_t[:10])
+    # the C entry point refuses P = 33 too (cudaErrorInvalidValue)
+    wide = torch.zeros((4, 33), device=cuda)
+    x33 = torch.zeros((10, 33), device=cuda)
+    out = torch.empty((4, 33), device=cuda)
+    err = _cuda.library("logreg").wt_logreg_value_grad(
+        wide.data_ptr(), x33.data_ptr(), y_t.data_ptr(), out.data_ptr(),
+        out.data_ptr(), 4, 33, 10, torch.cuda.current_stream().cuda_stream)
+    assert err == 1
 
 
 def test_fused_model_on_the_card_is_a_float32_island(cuda):
@@ -250,6 +293,15 @@ _INTEGRATOR_CASES = {
         lambda dev: kernels.logistic_regression_vg(device=dev),
         dict(theta_scale=0.3, inv_mass_scale=0.005, dt_range=(0.05, 0.2)),
         (torch.float32,)),
+    # the body's other padded widths: P = 7 (to 8) and P = 32
+    "logistic_regression_p7": (
+        lambda dev: kernels.logistic_regression_vg(1000, 7, device=dev),
+        dict(theta_scale=0.3, inv_mass_scale=0.005, dt_range=(0.05, 0.2)),
+        (torch.float32,)),
+    "logistic_regression_p32": (
+        lambda dev: kernels.logistic_regression_vg(1000, 32, device=dev),
+        dict(theta_scale=0.3, inv_mass_scale=0.005, dt_range=(0.05, 0.2)),
+        (torch.float32,)),
 }
 
 
@@ -272,7 +324,7 @@ def test_integrator_kernel_vs_plain(cuda, body, c):
         zero = args[3] == 0
         assert torch.equal(cur_k[zero], args[0][zero])
         assert bool((lp_k[zero] == float("-inf")).all())
-        if body == "logistic_regression":
+        if body.startswith("logistic_regression"):
             tol = dict(rtol=1e-3, atol=5e-3)
         elif dtype == torch.float32:
             tol = dict(rtol=1e-4, atol=1e-4)
@@ -379,7 +431,8 @@ _TRANSITION_TOL = dict(rtol=1e-3, atol=5e-3)
 @pytest.mark.parametrize("body,dim", [
     (b, d) for b in ("std_normal", "funnel", "ill_conditioned_normal")
     for d in (25, 101, 300)] + [("logistic_regression", 25),
-                                ("logistic_regression", 7)])
+                                ("logistic_regression", 7),
+                                ("logistic_regression", 32)])
 def test_transition_kernels_vs_plain(cuda, body, dim, num_draws):
     """100 chains: no multiple of the 8 chains (logistic regression: 32) a
     block takes."""

@@ -205,9 +205,17 @@ def _refusals():
         model = kernels.logistic_regression_vg(**LOGREG, device="cpu")
         return model, _good(dtype=torch.float64)
 
+    def logreg_33_features():  # the kernel's widths stop at 32
+        return (kernels.logistic_regression_vg(64, 33, device="cpu"),
+                _good(dim=33))
+
+    def logreg_1025_rows():  # X is staged whole in shared memory
+        return (kernels.logistic_regression_vg(1025, 5, device="cpu"),
+                _good(dim=5))
+
     return [wrong_dtype, wrong_cur_shape, wrong_inv_mass_shape, non_contiguous,
             n_steps_int64, dt_other_dtype, dim_above_cap, dim_not_the_models,
-            logreg_float64]
+            logreg_float64, logreg_33_features, logreg_1025_rows]
 
 
 @pytest.mark.parametrize("case", _refusals(), ids=lambda f: f.__name__)

@@ -75,6 +75,24 @@ def test_logreg_fused_matches_autograd_model():
     np.testing.assert_allclose(g_f.numpy(), g_a.numpy(), atol=2e-3)
 
 
+@pytest.mark.parametrize("p", [0, 1, 32, 33])
+def test_logreg_wrapper_feature_counts(p):
+    """1..32 features, the kernel's padded widths 4..32, run; 0 and 33 are
+    refused on either device."""
+    rng = np.random.default_rng(p)
+    theta = torch.from_numpy(rng.standard_normal((3, p)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((6, p)).astype(np.float32))
+    y = torch.tensor([1.0, -1.0, 1.0, 1.0, -1.0, -1.0])
+    if not 1 <= p <= 32:
+        with pytest.raises(ValueError, match="features"):
+            logreg_value_grad(theta, x, y)
+        return
+    lp, g = logreg_value_grad(theta, x, y)
+    want = logreg_value_grad_plain(theta, x, y)
+    assert torch.equal(lp, want[0]) and torch.equal(g, want[1])
+    assert lp.shape == (3,) and g.shape == (3, p)
+
+
 def test_logreg_wrapper_refuses_other_devices():
     meta = torch.empty((4, 25), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -46,7 +46,7 @@
 //   start (3), the forward attempt's end (3) and max_depth stack slots (8
 //   each); 25 MB at 4096 chains, D = 25, max_depth = 5, which the card's
 //   50 MB L2 holds. Shared memory was not chosen: the logistic-regression
-//   body already stages X there (136 KB of the block's 227 KB at N = 1000),
+//   body already stages X there (116 KB of the block's 227 KB at N = 1000),
 //   and a wide model or a deep tree would not fit beside it. The rows are
 //   touched a few times per attempt, the model is evaluated steps_total
 //   times, so the workspace is not what bounds the kernel. Only the cursor
@@ -58,8 +58,9 @@
 //   8 warps takes 8 chains; the cursor is strided over the lanes (4
 //   registers a lane for D <= 128, 32 for D <= 1024).
 // - Logistic regression (logreg_chain.cuh): as in integrator.cu, a block of
-//   8 warps stages X once and takes 32 chains, each warp its 4 chains in
-//   turn, every lane holding the chain's whole cursor.
+//   16 warps stages X once (at the width P rounded up to 4) and takes 32
+//   chains, each warp its 2 chains in turn, lane k holding feature k of the
+//   cursor.
 //
 // Limits, checked by the wrapper (ValueError): float32 only, D <= 1024
 // (logistic regression: D <= 32, N <= 1024 rows), max_depth <= 16.
@@ -78,11 +79,10 @@
 
 namespace {
 
-constexpr int WARPS = 8;       // warps per block, both kernels
+constexpr int WARPS = 8;       // warps per block of the simple bodies' kernel
 constexpr int MAX_DEPTH = 16;  // stack slots whose scalars a thread keeps
-constexpr int KP = wt::LOGREG_KP;
-constexpr int XS = wt::LOGREG_XS;
-constexpr int TILE = 32;  // chains per block of the logistic-regression kernel
+constexpr int LOGREG_WARPS = 16;  // warps per block of the logistic-regression kernel
+constexpr int LOGREG_TILE = 32;   // its chains per block: two a warp, in turn
 
 // The operands of both entry points: every pointer, then the sizes, then
 // the float scalars. Mirrors ops/fused_transition.py::TransitionArgs field
@@ -252,9 +252,11 @@ struct StridedCursor {
   }
 };
 
-// The cursor of the logistic-regression body: every lane holds it whole.
+// The cursor of the logistic-regression body: lane k holds feature k (0 at
+// k >= P), the coefficients are broadcast to every lane inside each step.
+template <int KP>
 struct LogregCursor {
-  float th[KP], rh[KP], gr[KP], im[KP];
+  float th, rh, gr, im;
   const float *xs, *ys;
   int N, P, lane;
 
@@ -266,38 +268,27 @@ struct LogregCursor {
     N = N_;
     P = P_;
     lane = lane_;
-#pragma unroll
-    for (int k = 0; k < KP; ++k) im[k] = k < P ? inv_mass[k] : 0.f;
+    im = lane < P ? inv_mass[lane] : 0.f;
   }
   __device__ __forceinline__ void load(const float* rows, float rho_sign) {
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      const bool in = k < P;
-      th[k] = in ? rows[k] : 0.f;
-      rh[k] = in ? rows[P + k] * rho_sign : 0.f;
-      gr[k] = in ? rows[2 * P + k] : 0.f;
-    }
+    const bool in = lane < P;
+    th = in ? rows[lane] : 0.f;
+    rh = in ? rows[P + lane] * rho_sign : 0.f;
+    gr = in ? rows[2 * P + lane] : 0.f;
   }
-  // lane k stores feature k of the three rows
   __device__ __forceinline__ void store(float* rows) const {
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      if (lane == k && k < P) {
-        rows[k] = th[k];
-        rows[P + k] = rh[k];
-        rows[2 * P + k] = gr[k];
-      }
+    if (lane < P) {
+      rows[lane] = th;
+      rows[P + lane] = rh;
+      rows[2 * P + lane] = gr;
     }
     __syncwarp();
   }
   __device__ __forceinline__ float kinetic() const {
-    float ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < KP; ++k) ss += (im[k] * rh[k]) * rh[k];
-    return -0.5f * ss;
+    return -0.5f * wt::warp_sum((im * rh) * rh);
   }
   __device__ __forceinline__ float integrate(float h, int n) {
-    return wt::leapfrog_logreg(th, rh, gr, im, xs, ys, N, h, n, lane);
+    return wt::leapfrog_logreg<KP>(th, rh, gr, im, xs, ys, N, h, n, lane);
   }
 };
 
@@ -509,25 +500,39 @@ __global__ void __launch_bounds__(WARPS * 32)
   run_chain(a, cur, c, lane);
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+template <int KP, int W>
+__global__ void __launch_bounds__(W * 32, 1)
     transition_logreg_kernel(TransitionArgs a) {
-  extern __shared__ float smem[];
+  static_assert(LOGREG_TILE % W == 0, "whole chains a warp");
+  extern __shared__ float4 smem[];
   const int N = a.n_data;
-  float* xs = smem;           // N rows x XS
-  float* ys = smem + N * XS;  // N
+  float* xs = reinterpret_cast<float*>(smem);  // N rows at width KP
+  float* ys = xs + N * wt::logreg_stride(KP);  // N
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  wt::logreg_stage(static_cast<const float*>(a.c0),
-                   static_cast<const float*>(a.c1), xs, ys, 0, N, a.dim);
+  wt::logreg_stage<KP>(static_cast<const float*>(a.c0),
+                       static_cast<const float*>(a.c1), xs, ys, N, a.dim);
   __syncthreads();
-  for (int ci = 0; ci < TILE / WARPS; ++ci) {
-    const int c = blockIdx.x * TILE + ci * WARPS + warp;
+  for (int ci = 0; ci < LOGREG_TILE / W; ++ci) {
+    const int c = blockIdx.x * LOGREG_TILE + ci * W + warp;
     if (c >= a.chains) break;  // warp-uniform; no block-wide sync follows
-    LogregCursor cur;
+    LogregCursor<KP> cur;
     cur.init(xs, ys, N, a.inv_mass + static_cast<size_t>(c) * a.dim, a.dim,
              lane);
     run_chain(a, cur, c, lane);
   }
+}
+
+template <int KP, int W = LOGREG_WARPS>
+cudaError_t launch_logreg(const TransitionArgs& a, cudaStream_t stream) {
+  const size_t smem = wt::logreg_smem_bytes(KP, a.n_data);
+  cudaError_t err = cudaFuncSetAttribute(
+      transition_logreg_kernel<KP, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.chains + LOGREG_TILE - 1) / LOGREG_TILE;
+  transition_logreg_kernel<KP, W><<<blocks, W * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <template <typename, int> class Model>
@@ -552,19 +557,13 @@ cudaError_t launch(const TransitionArgs& a, cudaStream_t stream) {
     case wt::BODY_ILL_NORMAL:
       if (a.c0 == nullptr) return cudaErrorInvalidValue;
       return launch_simple<wt::IllNormal>(a, stream);
-    case wt::BODY_LOGREG: {
-      if (a.dim > KP || a.n_data <= 0 || a.n_data > wt::LOGREG_MAX_ROWS ||
-          a.c0 == nullptr || a.c1 == nullptr)
+    case wt::BODY_LOGREG:
+      if (a.dim > wt::LOGREG_MAX_FEATURES || a.n_data <= 0 ||
+          a.n_data > wt::LOGREG_MAX_ROWS || a.c0 == nullptr || a.c1 == nullptr)
         return cudaErrorInvalidValue;
-      const size_t smem = static_cast<size_t>(a.n_data) * (XS + 1) * sizeof(float);
-      cudaError_t err = cudaFuncSetAttribute(
-          transition_logreg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      const int blocks = (a.chains + TILE - 1) / TILE;
-      transition_logreg_kernel<<<blocks, WARPS * 32, smem, stream>>>(a);
-      return cudaGetLastError();
-    }
+      return wt::logreg_by_width(a.dim, [&](auto width) {
+        return launch_logreg<decltype(width)::value>(a, stream);
+      });
     default:
       return cudaErrorInvalidValue;
   }

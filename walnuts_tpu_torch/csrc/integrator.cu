@@ -30,14 +30,18 @@
 //   inv_mass in registers for the whole attempt (NR registers a lane each:
 //   4 for D <= 128, 32 for D <= 1024). Feature sums are shuffle sums.
 //   float32 and float64.
-// - Logistic regression (logreg_chain.cuh): a block of 8 warps takes 32
-//   chains. X (padded to 32 columns, row stride 33) and y are staged in
-//   shared memory once per launch (136 KB at N = 1000), not once per step.
-//   Each warp runs its 4 chains in turn, a chain's whole attempt at a time:
-//   rows strided over lanes, the chain's 32 coefficients and gradient
-//   partials in registers, xor-shuffle sums that leave the full gradient in
-//   every lane, so each lane updates its own copy of the cursor with no
-//   further exchange. float32 only, explicit IEEE FMAs.
+// - Logistic regression (logreg_chain.cuh): one block of 16 warps per SM
+//   stages X (features padded to P rounded up to 4, a template width; row
+//   stride 4 m words, m odd) and y in shared memory once per launch (116 KB
+//   at N = 1000, P = 25), not once per step. Each warp takes the next chain
+//   from a counter in device memory, most steps first, a chain's whole
+//   attempt at a time, so a chain of 256 steps and one of 0 cost their own
+//   steps wherever they fall: lane k holds feature k of theta, rho, grad and
+//   inv_mass; per step
+//   the coefficients are broadcast to every lane, lanes stride over the
+//   rows with 16-byte loads, each row read once for its logit and its
+//   gradient FMAs, and a reduce-scatter hands lane k its gradient feature.
+//   float32 only, explicit IEEE FMAs.
 //
 // Built with -fmad=false: the leapfrog updates and the simple bodies round
 // every product and sum as the plain PyTorch version does. The dot products
@@ -50,7 +54,7 @@
 
 namespace {
 
-constexpr int WARPS = 8;  // warps per block, both kernels
+constexpr int WARPS = 8;  // warps per block of the simple bodies' kernel
 
 template <typename T, int NR, template <typename, int> class Model>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -88,11 +92,16 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (lane == 0) lp_out[c] = lp;
 }
 
-constexpr int KP = wt::LOGREG_KP;
-constexpr int XS = wt::LOGREG_XS;
-constexpr int TILE = 32;  // chains per block of the logistic-regression kernel
+constexpr int LOGREG_WARPS = 16;  // warps per block of the logistic-regression kernel
 
-__global__ void __launch_bounds__(WARPS * 32)
+// One block per SM (X fills its shared memory) for the whole launch; each
+// warp takes the next chain of sched[1..C] (chain indices, most steps
+// first) through the counter sched[0] (zero at launch) until none is left,
+// so the chains' unequal step counts spread over every warp of the card and
+// the last chains taken are the short ones. A chain's result does not
+// depend on the warp that runs it.
+template <int KP, int W = LOGREG_WARPS>
+__global__ void __launch_bounds__(W * 32, 1)
     integrate_logreg_kernel(const float* __restrict__ cur,
                             const float* __restrict__ inv_mass,
                             const float* __restrict__ dt,
@@ -100,42 +109,74 @@ __global__ void __launch_bounds__(WARPS * 32)
                             const float* __restrict__ x,
                             const float* __restrict__ y,
                             float* __restrict__ cur_out,
-                            float* __restrict__ lp_out, int C, int P, int N) {
-  extern __shared__ float smem[];
-  float* xs = smem;           // N rows x XS
-  float* ys = smem + N * XS;  // N
-  const int warp = threadIdx.x >> 5;
+                            float* __restrict__ lp_out,
+                            int* __restrict__ sched, int C, int P, int N) {
+  extern __shared__ float4 smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // N rows at width KP
+  float* ys = xs + N * wt::logreg_stride(KP);  // N
   const int lane = threadIdx.x & 31;
-  wt::logreg_stage(x, y, xs, ys, 0, N, P);
+  wt::logreg_stage<KP>(x, y, xs, ys, N, P);
   __syncthreads();
 
-  for (int ci = 0; ci < TILE / WARPS; ++ci) {
-    const int c = blockIdx.x * TILE + ci * WARPS + warp;
-    if (c >= C) break;  // warp-uniform; no block-wide sync follows
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(sched, 1);
+    i = __shfl_sync(0xffffffffu, i, 0);
+    if (i >= C) break;  // warp-uniform; no block-wide sync follows
+    const int c = sched[1 + i];
     const size_t row = static_cast<size_t>(c) * 3 * P;
-    // every lane holds the chain's whole cursor (broadcast loads)
-    float th[KP], rh[KP], gr[KP], im[KP];
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      const bool in = k < P;
-      th[k] = in ? cur[row + k] : 0.f;
-      rh[k] = in ? cur[row + P + k] : 0.f;
-      gr[k] = in ? cur[row + 2 * P + k] : 0.f;
-      im[k] = in ? inv_mass[static_cast<size_t>(c) * P + k] : 0.f;
-    }
-    const float lp = wt::leapfrog_logreg(th, rh, gr, im, xs, ys, N, dt[c],
-                                         n_steps[c], lane);
-    // lane k stores feature k of the three rows
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      if (lane == k && k < P) {
-        cur_out[row + k] = th[k];
-        cur_out[row + P + k] = rh[k];
-        cur_out[row + 2 * P + k] = gr[k];
-      }
+    // lane k holds feature k of the cursor
+    const bool in = lane < P;
+    float th = in ? cur[row + lane] : 0.f;
+    float rh = in ? cur[row + P + lane] : 0.f;
+    float gr = in ? cur[row + 2 * P + lane] : 0.f;
+    const float im = in ? inv_mass[static_cast<size_t>(c) * P + lane] : 0.f;
+    const float lp = wt::leapfrog_logreg<KP>(th, rh, gr, im, xs, ys, N, dt[c],
+                                             n_steps[c], lane);
+    if (in) {
+      cur_out[row + lane] = th;
+      cur_out[row + P + lane] = rh;
+      cur_out[row + 2 * P + lane] = gr;
     }
     if (lane == 0) lp_out[c] = lp;
   }
+}
+
+template <int KP, int W = LOGREG_WARPS>
+cudaError_t launch_logreg_width(const float* cur, const float* inv_mass,
+                                const float* dt, const int* n_steps,
+                                const float* x, const float* y, float* cur_out,
+                                float* lp_out, int* sched, int C, int P,
+                                int N, cudaStream_t stream) {
+  const auto kernel = integrate_logreg_kernel<KP, W>;
+  const size_t smem = wt::logreg_smem_bytes(KP, N);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * 32,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  // as many blocks as the card holds at once, no more than the chains need
+  const int blocks = min(max(per_sm, 1) * sms, (C + W - 1) / W);
+  kernel<<<blocks, W * 32, smem, stream>>>(cur, inv_mass, dt, n_steps, x, y,
+                                           cur_out, lp_out, sched, C, P, N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_logreg(const float* cur, const float* inv_mass,
+                          const float* dt, const int* n_steps, const float* x,
+                          const float* y, float* cur_out, float* lp_out,
+                          int* sched, int C, int P, int N,
+                          cudaStream_t stream) {
+  return wt::logreg_by_width(P, [&](auto width) {
+    return launch_logreg_width<decltype(width)::value>(
+        cur, inv_mass, dt, n_steps, x, y, cur_out, lp_out, sched, C, P, N,
+        stream);
+  });
 }
 
 template <typename T, int NR, template <typename, int> class Model>
@@ -181,12 +222,16 @@ cudaError_t launch_type(int is_double, const void* cur, const void* inv_mass,
 
 // body: wt::Body. c0, c1: the body's constants (ill-conditioned normal:
 // inv_var (D,) in the cursor's type; logistic regression: x (N, D) and
-// y (N,), float32). p0, p1: the funnel's 1 / scale^2 and 0.5 (D - 1).
+// y (N,), float32). sched: logistic regression's schedule, C + 1 int32, a
+// counter that is 0 at launch and the chain indices in the order the warps
+// take them (null for the other bodies). p0, p1: the funnel's 1 / scale^2
+// and 0.5 (D - 1).
 extern "C" int wt_integrate(const void* cur, const void* inv_mass,
                             const void* dt, const void* n_steps,
                             const void* c0, const void* c1, void* cur_out,
-                            void* lp_out, int C, int D, int body, int is_double,
-                            double p0, double p1, int n_data, void* stream_ptr) {
+                            void* lp_out, void* sched, int C, int D,
+                            int body, int is_double, double p0, double p1,
+                            int n_data, void* stream_ptr) {
   if (C <= 0 || D <= 0 || D > 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
@@ -204,25 +249,21 @@ extern "C" int wt_integrate(const void* cur, const void* inv_mass,
       err = launch_type<wt::IllNormal>(is_double, cur, inv_mass, dt, n_steps, c0,
                                        p0, p1, cur_out, lp_out, C, D, stream);
       break;
-    case wt::BODY_LOGREG: {
-      if (is_double || D > KP || n_data <= 0 || n_data > wt::LOGREG_MAX_ROWS ||
-          c0 == nullptr || c1 == nullptr)
+    case wt::BODY_LOGREG:
+      if (is_double || D > wt::LOGREG_MAX_FEATURES || n_data <= 0 ||
+          n_data > wt::LOGREG_MAX_ROWS || c0 == nullptr || c1 == nullptr ||
+          sched == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-      const size_t smem = static_cast<size_t>(n_data) * (XS + 1) * sizeof(float);
-      err = cudaFuncSetAttribute(integrate_logreg_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const int blocks = (C + TILE - 1) / TILE;
-      integrate_logreg_kernel<<<blocks, WARPS * 32, smem, stream>>>(
-          static_cast<const float*>(cur), static_cast<const float*>(inv_mass),
-          static_cast<const float*>(dt), static_cast<const int*>(n_steps),
-          static_cast<const float*>(c0), static_cast<const float*>(c1),
-          static_cast<float*>(cur_out), static_cast<float*>(lp_out), C, D,
-          n_data);
-      err = cudaGetLastError();
+      err = launch_logreg(static_cast<const float*>(cur),
+                          static_cast<const float*>(inv_mass),
+                          static_cast<const float*>(dt),
+                          static_cast<const int*>(n_steps),
+                          static_cast<const float*>(c0),
+                          static_cast<const float*>(c1),
+                          static_cast<float*>(cur_out),
+                          static_cast<float*>(lp_out),
+                          static_cast<int*>(sched), C, D, n_data, stream);
       break;
-    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

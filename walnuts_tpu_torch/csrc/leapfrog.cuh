@@ -45,28 +45,27 @@ __device__ __forceinline__ T leapfrog_strided(T (&th)[NR], T (&rh)[NR],
   return lp;
 }
 
-// Logistic regression (logreg_chain.cuh): every lane holds the chain's
-// whole cursor; xs (N rows, stride LOGREG_XS) and ys are staged in shared
+// Logistic regression (logreg_chain.cuh): lane k holds feature k of the
+// cursor (0 at k >= P), as the strided bodies do at D <= 32; after each
+// position update the coefficients are broadcast to every lane by shuffles
+// for the evaluation. xs (N rows at width KP) and ys are staged in shared
 // memory.
-__device__ __forceinline__ float leapfrog_logreg(
-    float (&th)[LOGREG_KP], float (&rh)[LOGREG_KP], float (&gr)[LOGREG_KP],
-    const float (&im)[LOGREG_KP], const float* xs, const float* ys, int N,
-    float h, int n, int lane) {
+template <int KP>
+__device__ __forceinline__ float leapfrog_logreg(float& th, float& rh,
+                                                 float& gr, float im,
+                                                 const float* xs,
+                                                 const float* ys, int N,
+                                                 float h, int n, int lane) {
   const float half = 0.5f * h;
   float lp = -INFINITY;
   for (int i = 0; i < n; ++i) {
+    rh = rh + half * gr;
+    th = th + (h * im) * rh;
+    float tv[KP];
 #pragma unroll
-    for (int k = 0; k < LOGREG_KP; ++k) {
-      rh[k] = rh[k] + half * gr[k];
-      th[k] = th[k] + (h * im[k]) * rh[k];
-      gr[k] = 0.f;
-    }
-    float lacc = 0.f;
-    logreg_accumulate(xs, ys, N, lane, th, gr, lacc);
-    logreg_reduce(gr, lacc);
-    lp = logreg_finish(th, gr, lacc);
-#pragma unroll
-    for (int k = 0; k < LOGREG_KP; ++k) rh[k] = rh[k] + half * gr[k];
+    for (int k = 0; k < KP; ++k) tv[k] = __shfl_sync(0xffffffffu, th, k);
+    lp = logreg_eval<KP>(tv, th, xs, ys, N, lane, gr);
+    rh = rh + half * gr;
   }
   return lp;
 }

@@ -52,9 +52,10 @@ _SIGNATURES = {
         "wt_fused_pass_args_size": [],
     },
     "integrator": {
-        # cur, inv_mass, dt, n_steps, two constants, cur_out, lp_out; C, D,
-        # body, is_double; two scalar parameters; n_data; stream
-        "wt_integrate": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        # cur, inv_mass, dt, n_steps, two constants, cur_out, lp_out, the
+        # chain schedule; C, D, body, is_double; two scalar parameters;
+        # n_data; stream
+        "wt_integrate": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
         + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p],
     },
     "fused_transition": {

@@ -183,13 +183,21 @@ class FusedIntegrator:
                 vg, cur.device, cur.dtype)
         ptrs = [t.data_ptr() for t in consts] + [None] * (2 - len(consts))
         p0, p1, n_data = body_scalars(vg, d)
+        # the logistic-regression kernel's warps take chains from a counter,
+        # the chains with the most steps first: [0, order of the chains]
+        sched = None
+        if body == "logistic_regression":
+            order = torch.argsort(n_steps, descending=True, stable=True)
+            sched = torch.cat([torch.zeros(1, dtype=torch.int32, device=cur.device),
+                               order.to(torch.int32)])
         with torch.cuda.device(cur.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.wt_integrate(
                 cur.data_ptr(), inv_mass.data_ptr(), dt.data_ptr(),
                 n_steps.data_ptr(), ptrs[0], ptrs[1], cur_out.data_ptr(),
-                lp.data_ptr(), c, d, BODIES[body],
-                int(cur.dtype == torch.float64), p0, p1, n_data, stream)
+                lp.data_ptr(), None if sched is None else sched.data_ptr(),
+                c, d, BODIES[body], int(cur.dtype == torch.float64), p0, p1,
+                n_data, stream)
         _cuda.check(err, "wt_integrate")
         self.launches += 1
         return cur_out, lp

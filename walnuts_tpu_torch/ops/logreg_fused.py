@@ -23,7 +23,8 @@ import torch
 
 from walnuts_tpu_torch.models.targets import logistic_regression_data
 
-#: the kernel keeps one chain's coefficients in registers, padded to 32
+#: the kernel keeps one chain's coefficients in a lane's registers, padded
+#: to the feature count rounded up to 4 (at most 32)
 MAX_FEATURES = 32
 
 
