@@ -530,10 +530,21 @@ def check_transition(card: str, body: str) -> list:
             plain = lambda: ft.fused_sample_block_plain(vg, *args, attempts=attempts,
                                                         **static)
             ints, floats, replaces = (5,), (0, 1, 2, 3, 4), 555
+        # no measurement of an earlier check (its tensors may have lain at
+        # these addresses): the first launch takes the chains in index order
+        ft._MEASURED[:] = [None, None]
         got = fused(*args)
         torch.cuda.synchronize()
         if fused.launches != 1:
             raise AssertionError(f"{name}[{body}]: {fused.launches} launches for one call")
+        # a second launch, its chains taken in the order the first measured:
+        # a chain's result depends on neither the warp nor the order (and
+        # the counter starts at 0 again)
+        again = fused(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name}[{body}]: a launch in measured order "
+                                 "differs from the launch in index order")
         want, plain_ms = _event_ms(plain)
         same = torch.ones(CHAINS, dtype=torch.bool, device=DEVICE)
         for i in ints:
@@ -562,10 +573,13 @@ def check_transition(card: str, body: str) -> list:
         ops = (float(evals) * (7 * dim + spec["ops"](dim))
                + float(attempts.sum()) * (MAX_DEPTH + 2) * 8 * dim)
         bound_ms, bound_by = bound(nbytes, ops)
+        group = fused.GROUP_WARPS if body == "logistic_regression" else 1
         print(f"[transition] {name}, {body}, D={dim}"
-              f"{'' if n == 1 else f', {n} draws'}: kernel against plain at "
-              f"C={CHAINS}, max_depth {MAX_DEPTH}, max_step_halvings {HALVINGS}: "
-              f"depth and n_grads equal on {share:.4f} of the chains, on those "
+              f"{'' if n == 1 else f', {n} draws'}, group_warps {group}: kernel "
+              f"against plain at C={CHAINS}, max_depth {MAX_DEPTH}, "
+              f"max_step_halvings {HALVINGS}: launches in index and in measured order "
+              f"bitwise equal; depth and n_grads equal on {share:.4f} of the "
+              f"chains, on those "
               f"theta, grad, logp within rtol {TRANSITION_TOL['rtol']:g} atol "
               f"{TRANSITION_TOL['atol']:g} (max abs err {err:.3e}); {evals} "
               f"evaluations in {int(attempts.sum())} attempts, largest per-chain "
@@ -577,7 +591,7 @@ def check_transition(card: str, body: str) -> list:
             source="walnuts_tpu_torch/csrc/fused_transition.cu",
             replaces=f"walnuts_tpu/ops/fused_transition.py:{replaces}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None))
+            bound_by=bound_by, library_ms=None, group_warps=group))
     return results
 
 
@@ -728,23 +742,37 @@ def _start_state(logp_grad, dim: int, seed: int, wcfg, scfg):
                              wcfg, scfg)
 
 
-def run_fused_route(card: str, ref, warmup: int = 50,
-                    order=("unfused", "fused")) -> tuple:
-    """Warmup once, then sampling with the unfused and the fused tier-2
-    pass from the same warmed state, in ``order``. Returns the fused run's
-    launches and the warmed state."""
+def warmed_state(warmup: int = 50):
+    """The fused route's warmed state: ``run_warmup`` for ``warmup``
+    iterations from the start ``walnuts()`` makes for seed SEED + 1 (also
+    the input of ``tools/torch_logreg_sweep.py``'s transition sweep)."""
     from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
-    from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
     from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
-    from walnuts_tpu_torch.parallel.runtime import run_sampling, run_warmup
+    from walnuts_tpu_torch.parallel.runtime import run_warmup
 
     logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
     wcfg = WarmupConfig(min_iter=warmup, max_iter=warmup, block_size=50)
     scfg = SamplingConfig(min_iter=ROUTE_ITERS, max_iter=ROUTE_ITERS,
                           block_size=50, max_step_halvings=HALVINGS)
     ws = _start_state(logp_grad, dim, SEED + 1, wcfg, scfg)
+    return run_warmup(logp_grad, ws, wcfg, scfg, tier2_every=12)[0]
+
+
+def run_fused_route(card: str, ref, warmup: int = 50,
+                    order=("unfused", "fused")) -> tuple:
+    """Warmup once, then sampling with the unfused and the fused tier-2
+    pass from the same warmed state, in ``order``. Returns the fused run's
+    launches and the warmed state."""
+    from walnuts_tpu_torch.config import SamplingConfig
+    from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    scfg = SamplingConfig(min_iter=ROUTE_ITERS, max_iter=ROUTE_ITERS,
+                          block_size=50, max_step_halvings=HALVINGS)
     t0 = time.perf_counter()
-    ws, _, _, winfo = run_warmup(logp_grad, ws, wcfg, scfg, tier2_every=12)
+    ws = warmed_state(warmup)
     print(f"[fused route] run_warmup {warmup} iterations: "
           f"{time.perf_counter() - t0:.3f} s  [{card}]")
     params, ss = freeze_params(ws), init_sample_state(ws)
@@ -1024,10 +1052,24 @@ def run_transition_path(card: str, ref, ws) -> dict:
     from walnuts_tpu_torch.ops import prng
     from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
 
+    from walnuts_tpu_torch.ops import _cuda
+
     model, xy, tail = _transition_setup(ws)
     base = prng.key(SEED + 3, DEVICE)
     one = ft.make_fused_transition(model, DIM, MAX_DEPTH, HALVINGS)
     block = ft.make_fused_sample_block(model, DIM, MAX_DEPTH, HALVINGS, BLOCK_DRAWS)
+    # the body's kernel at this width, by its demangled or its mangled name
+    kp = (DIM + 3) // 4 * 4
+    regs = [r for r in ptxas_report(_cuda.BUILD_INFO["fused_transition"]["log"])
+            if r[0].startswith(f"transition_logreg_kernel<{kp},")
+            or f"transition_logreg_kernelILi{kp}E" in r[0]]
+    if not regs:
+        raise AssertionError("ptxas reported no transition_logreg_kernel at width "
+                             f"{kp}")
+    print(f"[transition path] group_warps: 5a {one.GROUP_WARPS}, 5b "
+          f"{block.GROUP_WARPS}; chains taken in measured order; "
+          f"{regs[0][0]}: {regs[0][1]} registers, {regs[0][2]} bytes spill "
+          f"stores  [{card}]")
     # load the library and the body's constants outside the timed loops
     lp0, g0 = logreg_value_grad(ws.theta, *xy)
     one(0, ws.theta, _momenta(base, (CHAINS, DIM), tail[1]), lp0, g0, *tail)
@@ -1219,9 +1261,14 @@ def main() -> None:
     for body in ("std_normal", "ill_conditioned_normal", "funnel"):
         check_integrator(card, body)
     kernels.append(check_integrator(card, "logistic_regression"))
-    for body in ("std_normal", "ill_conditioned_normal", "funnel"):
-        check_transition(card, body)
-    kernels.extend(check_transition(card, "logistic_regression"))
+    shares = {}
+    for body in ("std_normal", "ill_conditioned_normal", "funnel", "logistic_regression"):
+        checked = check_transition(card, body)
+        shares[body] = " / ".join(f"{k['ms']:.4f} ms, {k['bound_ms'] / k['ms']:.4f}"
+                                  for k in checked)
+    kernels.extend(checked)
+    print(f"[transition] 5a / 5b ({BLOCK_CHECK_DRAWS} draws) at C={CHAINS}, each "
+          f"body's time and share of its bound: {json.dumps(shares)}  [{card}]")
     ref = laplace(*logistic_regression_data(ROWS, DIM))
     launches = run_main_path(card, ref)
     order = ("unfused", "fused", "fused", "unfused") if args.ab else ("unfused", "fused")
@@ -1240,12 +1287,13 @@ def main() -> None:
     if args.profile:
         profile_window(card)
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all  [{card}]")
-    # the contract's keys, then kernel 2's matrix products and the time and
+    # the contract's keys, then kernel 2's matrix products, the time and
     # bound of a launch on the kernel's own path where they differ from the
-    # check's synthetic inputs (kernels 3, 5a, 5b)
+    # check's synthetic inputs (kernels 3, 5a, 5b), and the warps a
+    # logistic-regression chain is split over (5a, 5b)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "matmul_ms",
-            "path_ms", "path_bound_ms")
+            "path_ms", "path_bound_ms", "group_warps")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -82,7 +82,9 @@ def test_outputs_and_info_shape():
     out, info = wtt.walnuts(funnel(3)[0], num_params=3, num_chains=3, seed=1,
                             device="cpu", min_warmup_iter=6, max_warmup_iter=6,
                             min_sampling_iter=5, max_sampling_iter=5,
-                            block_size=3, save_warmup=True, return_info=True)
+                            block_size=3, save_warmup=True, return_info=True,
+                            checkpoint_every=1, checkpoint_keep_last_n=None,
+                            resume=True)  # the checkpoint options' defaults
     assert len(out) == 3 and out[0].shape == (5, 3)
     assert out[0].dtype == np.float32  # the port's default dtype
     assert out[0].warmup.warmup_draws.shape == (6, 3)
@@ -92,7 +94,9 @@ def test_outputs_and_info_shape():
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("batched_groups", 2),
-    ("model_dtype", torch.float32), ("checkpoint_dir", "ckpt"), ("thin", 2),
+    ("model_dtype", torch.float32), ("checkpoint_dir", "ckpt"),
+    ("checkpoint_every", 5), ("checkpoint_keep_last_n", 2), ("resume", False),
+    ("thin", 2),
     ("keep_dims", [0]), ("bf16_ends", True), ("flatten", True),
     ("chain_groups", 2), ("profile_dir", "prof"),
     ("min_latched", 1), ("defer_splits", False),

@@ -354,3 +354,19 @@ def test_factories_refuse_bad_settings():
     with pytest.raises(ValueError, match="features"):
         fn(0, z, z, z[:, 0].contiguous(), z, z[:, 0].contiguous(), z,
            torch.ones(2, dtype=torch.int32), MAX_ERROR)
+
+
+@pytest.mark.parametrize("measured, want", [
+    ([7, 30, 7, 2, 90, 11], [4, 1, 5, 0, 2, 3]),
+    ([5, 5, 5, 5, 5, 5], [0, 1, 2, 3, 4, 5]),
+    (None, [0, 1, 2, 3, 4, 5]),
+])
+def test_chain_schedule(measured, want):
+    """The kernels' ``sched`` operand: a counter at 0, then every chain once,
+    most measured evaluations first, ties in index order; index order with
+    none measured."""
+    if measured is not None:
+        measured = torch.tensor(measured, dtype=torch.int64)
+    sched = ft.chain_schedule(6, measured)
+    assert sched.dtype == torch.int32 and sched.shape == (7,)
+    assert sched.tolist() == [0] + want

@@ -27,7 +27,10 @@ branch through the last bits of ``exp`` / ``log`` or the order of a sum),
 and on those chains theta, grad and logp agree within rtol 1e-3 / atol 5e-3
 (the funnel rtol 5e-3: its gradients reach the hundreds in the neck, and
 over 8 draws at D = 300 the order of a feature sum grew to 1.4e-3 of an
-entry on one of 30000).
+entry on one of 30000). Their logistic-regression chains are also run, on
+the group of warps a chain that each entry point takes, at chain counts
+below, at and above a multiple of the card's warps, and must repeat bit
+for bit from launch to launch and from one chain order to the other.
 """
 
 import numpy as np
@@ -473,6 +476,73 @@ def test_transition_kernels_vs_plain(cuda, body, dim, num_draws):
                                    **tol)
     if num_draws:
         assert torch.equal(got[0][-1], got[2])  # the last draw is the final point
+
+
+_PLAIN_TRANSITIONS = {}  # (kind, C, P) -> the case's operands and plain result
+
+
+def _logreg_transition_case(cuda, kind, c, p):
+    """Logistic regression (1000 rows at P = 25, else 200), max_depth 5,
+    max_step_halvings 8, 5a or 5b of 3 draws: the factory's arguments, the
+    call's arguments and the plain version's result, made once per case."""
+    key = (kind, c, p)
+    if key not in _PLAIN_TRANSITIONS:
+        factory, scales = _TRANSITION_CASES["logistic_regression"]
+        model = factory(p, cuda)
+        vg = model[0]
+        n = 1 if kind == "5a" else 3
+        t = ft.transition_tensors(vg, ft.synthetic_transition_inputs(
+            c, p, 7 * c + p, num_draws=n, **scales), cuda)
+        tail = (t["step"], t["inv_mass"], t["min_micro"], 0.5)
+        static = dict(max_depth=5, max_step_halvings=8)
+        if kind == "5a":
+            args = (11, t["theta"], t["rho"][0].contiguous(), t["logp0"],
+                    t["grad0"], *tail)
+            want = ft.fused_transition_plain(vg, *args, **static)
+        else:
+            args = (11, t["theta"], t["logp0"], t["grad0"], t["rho"], *tail)
+            want = ft.fused_sample_block_plain(vg, *args, **static)
+        _PLAIN_TRANSITIONS[key] = (model, args, want)
+    return _PLAIN_TRANSITIONS[key]
+
+
+@pytest.mark.parametrize("p", [1, 7, 25, 32])
+@pytest.mark.parametrize("c", [1, 31, 33, 4096, 4097])
+@pytest.mark.parametrize("kind", ["5a", "5b"])
+def test_transition_logreg_counter_and_groups(cuda, kind, c, p):
+    """The logistic-regression chains of 5a and 5b, taken from the counter
+    by groups of the entry point's ``GROUP_WARPS`` warps: two launches in a
+    row are bitwise equal (the counter starts from 0 at every launch; the
+    first takes the chains in index order, the second in the order the
+    first measured), and
+    depth and n_grads equal the plain version's on at least 0.98 of the
+    chains, with theta, grad and logp (5b: every draw) within rtol 1e-3 /
+    atol 5e-3 on every one of those chains."""
+    model, args, want = _logreg_transition_case(cuda, kind, c, p)
+    if kind == "5a":
+        fused = ft.make_fused_transition(model, p, 5, 8)
+        ints, floats = (3, 4), (0, 1, 2)
+    else:
+        fused = ft.make_fused_sample_block(model, p, 5, 8, 3)
+        ints, floats = (5,), (0, 1, 2, 3, 4)
+    ft._MEASURED[:] = [None, None]  # no earlier case's measurement
+    got = fused(*args)
+    again = fused(*args)
+    torch.cuda.synchronize()
+    assert fused.launches == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    same = torch.ones(c, dtype=torch.bool, device=cuda)
+    for i in ints:
+        same &= got[i] == want[i]
+    assert same.float().mean() >= 0.98
+    for i in floats:
+        # the chain axis first
+        g, w = (x[i].movedim(1, 0) if kind == "5b" and i < 2 else x[i]
+                for x in (got, want))
+        np.testing.assert_allclose(g[same].cpu().numpy(), w[same].cpu().numpy(),
+                                   **_TRANSITION_TOL)
+    if c > 1:
+        assert int(want[ints[-1]].max()) > int(want[ints[-1]].min())  # chains differ
 
 
 def test_transition_kernels_refuse_bad_input(cuda):

@@ -5,15 +5,30 @@ body of kernel 3 (``csrc/integrator.cu``) and of kernels 5a and 5b
 (``csrc/fused_transition.cu``), all three through ``csrc/logreg_chain.cuh``,
 are templates over their warps per block. This script builds one library
 per source that includes it and exports a launcher per warp count (kernel
-2 also without its log-sigmoid terms: the two products alone),
-then at ``chip_smoke.py``'s shapes (kernel 2: theta 4096 x 25, X 1000 x 25;
-kernel 3: the synthetic attempt of 4096 chains, n_steps in 0..256; 5a and
-5b: the synthetic transition of 4096 chains, 5b with 8 draws) times each
-with CUDA events behind a sleep kernel, holds it against the plain version,
-and prints ptxas' registers and spill stores for it. The geometry the
-sources launch is marked ``*``. Needs ``nvcc`` and a CUDA card.
+2 also without its log-sigmoid terms: the two products alone), then times
+each with CUDA events behind a sleep kernel, holds it against a reference,
+and prints ptxas' registers and spill stores for it:
 
-Run from the root of a checkout:  python3 tools/torch_logreg_sweep.py
+- kernel 2 at ``chip_smoke.py``'s shapes (theta 4096 x 25, X 1000 x 25),
+  against its plain version;
+- kernel 3 on the synthetic attempt of 4096 chains (n_steps in 0..256),
+  against its plain version;
+- 5a and 5b on ``chip_smoke.py``'s transition path: the fused route's warmed
+  state (4096 chains, 50 warmup iterations), 5b one launch of 100 draws
+  (timed three times after two launches that are not, so that the measured
+  order has launches to learn from and the schedule's first sort is not
+  timed), 5a 20 launches of one draw, at every warps per block and every
+  group of warps a chain (the harness sets the group the entry points fix),
+  at 8 warps also with the chains in index order and in the order of a
+  cost proxy (``min_micro`` descending, then ``step`` ascending), each
+  against the first geometry's chains, with where a 5b launch's time went
+  (the kernel's per-chain trace).
+
+The geometry the sources launch is marked ``*``. Needs ``nvcc`` and a CUDA
+card.
+
+Run from the root of a checkout:  python3 tools/torch_logreg_sweep.py [part ...]
+with parts among ``logreg``, ``integrator``, ``transition`` (default: all).
 """
 
 from __future__ import annotations
@@ -23,6 +38,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -30,12 +46,17 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke  # noqa: E402
 from walnuts_tpu_torch.models import kernels  # noqa: E402
 from walnuts_tpu_torch.models.targets import logistic_regression_data  # noqa: E402
 from walnuts_tpu_torch.ops import _cuda  # noqa: E402
 from walnuts_tpu_torch.ops import fused_transition as ft  # noqa: E402
 from walnuts_tpu_torch.ops import integrator as integ  # noqa: E402
-from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad_plain  # noqa: E402
+from walnuts_tpu_torch.ops import prng  # noqa: E402
+from walnuts_tpu_torch.ops.logreg_fused import (  # noqa: E402
+    logreg_value_grad,
+    logreg_value_grad_plain,
+)
 
 CHAINS, DIM, ROWS = 4096, 25, 1000
 KP = 28  # DIM rounded up to 4
@@ -46,7 +67,13 @@ LEAD_CYCLES = 20_000_000
 # alone, not a correct result)
 LOGREG_GEOMETRIES = [(16, True), (16, False), (8, True), (12, True)]
 INTEGRATOR_GEOMETRIES = [(16,), (8,), (12,)]
-TRANSITION_GEOMETRIES = [(16,), (8,)]
+# 5a / 5b: warps per block, and warps a chain; the first warp count is the
+# one the source launches
+TRANSITION_GEOMETRIES = [(8, 1), (8, 2), (8, 4), (16, 1), (16, 2), (16, 4),
+                         (12, 1), (12, 2), (12, 4), (6, 1), (6, 2), (4, 1),
+                         (4, 2), (4, 4)]
+# the orders the 8-warp geometries also run in (the others: measured only)
+ORDERS = ("measured", "index", "cost")
 
 _HARNESS = {
     "logreg": """#include "{src}"
@@ -81,13 +108,28 @@ extern "C" int sweep(int v, const void* cur, const void* inv_mass, const void* d
 }}
 """,
     "fused_transition": """#include "{src}"
-extern "C" int sweep(int v, const void* args, void* stream) {{
-  const TransitionArgs& a = *static_cast<const TransitionArgs*>(args);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// geometry v: its warps per block, and its group in place of the caller's
+static cudaError_t sweep_plan(int v, TransitionArgs& a, Plan* p) {{
   switch (v) {{
 {cases}
   }}
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cudaErrorInvalidValue;
+}}
+extern "C" int sweep_workspace(int v, const void* args, long long* floats) {{
+  TransitionArgs a = *static_cast<const TransitionArgs*>(args);
+  Plan p;
+  const cudaError_t err = sweep_plan(v, a, &p);
+  if (err == cudaSuccess)
+    *floats = static_cast<long long>(p.blocks) * p.runners *
+              work_floats(a.max_depth, a.dim);
+  return static_cast<int>(err);
+}}
+extern "C" int sweep(int v, const void* args, void* stream) {{
+  TransitionArgs a = *static_cast<const TransitionArgs*>(args);
+  Plan p;
+  const cudaError_t err = sweep_plan(v, a, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_plan(a, p, static_cast<cudaStream_t>(stream)));
 }}
 """,
 }
@@ -96,8 +138,7 @@ _CASE = {
               "t, xx, yy, l, g, B, P, N, s));",
     "integrator": "    case {i}: return static_cast<int>(launch_logreg_width<{kp}, {w}>("
                   "c, im, h, n, xx, yy, co, lo, nc, C, P, N, s));",
-    "fused_transition": "    case {i}: return static_cast<int>("
-                        "launch_logreg<{kp}, {w}>(a, s));",
+    "fused_transition": "    case {i}: a.group = {g}; return plan_logreg<{kp}, {w}>(a, p);",
 }
 _KERNEL = {"logreg": "logreg_kernel", "integrator": "integrate_logreg_kernel",
            "fused_transition": "transition_logreg_kernel"}
@@ -106,7 +147,7 @@ _KERNEL = {"logreg": "logreg_kernel", "integrator": "integrate_logreg_kernel",
 def build(name: str, geometries) -> tuple:
     """The harness library of csrc/<name>.cu and ptxas' report per geometry."""
     src, flags, _ = _cuda._target(name)
-    cases = "\n".join(_CASE[name].format(i=i, kp=KP, w=g[0],
+    cases = "\n".join(_CASE[name].format(i=i, kp=KP, w=g[0], g=g[-1],
                                           terms=str(g[-1] is not False).lower())
                       for i, g in enumerate(geometries))
     out_dir = _cuda.BUILD_DIR / "sweep"
@@ -242,48 +283,171 @@ class _Variant:
     def wt_transition_args_size(self) -> int:
         return self.lib.wt_transition_args_size()
 
+    def wt_transition_workspace(self, args: int, floats: int) -> int:
+        return self.lib.sweep_workspace(self.v, ctypes.c_void_p(args),
+                                        ctypes.c_void_p(floats))
+
     def wt_fused_transition(self, args: int, stream: int) -> int:
         return self.lib.sweep(self.v, ctypes.c_void_p(args), ctypes.c_void_p(stream))
 
     wt_fused_sample_block = wt_fused_transition
 
 
+def _event_ms(fn) -> tuple:
+    """``fn()``'s result and its device milliseconds (events behind a sleep)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(LEAD_CYCLES // 20)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def trace_summary(trace: torch.Tensor, n_grads: torch.Tensor) -> str:
+    """Where a launch's time went, from the kernel's per-chain trace (start
+    and end in ns, SM): when the counter ran dry, when the first SM went
+    idle, when the last chain ended, and the chain that ran longest."""
+    t = trace.cpu()
+    t0 = int(t[:, 0].min())
+    start, end = (t[:, 0] - t0) / 1e6, (t[:, 1] - t0) / 1e6
+    sm_end = [float(end[t[:, 2] == sm].max()) for sm in torch.unique(t[:, 2])]
+    run = end - start
+    k = int(torch.argmax(run))
+    return (f"counter dry at {float(start.max()):.3f} ms, first SM idle at "
+            f"{min(sm_end):.3f} ms, last chain ends at {float(end.max()):.3f} ms "
+            f"({len(sm_end)} SMs); longest-running chain {k}: n_grads "
+            f"{int(n_grads[k])}, from {float(start[k]):.3f} to {float(end[k]):.3f} ms "
+            f"({float(run[k]) / int(n_grads[k]) * 1e3:.2f} us an evaluation)")
+
+
+def cost_order(step: torch.Tensor, min_micro: torch.Tensor) -> torch.Tensor:
+    """The chains most expensive first by a proxy from the frozen tuning:
+    ``min_micro`` descending, then ``step`` ascending, ties in index order."""
+    by_step = torch.argsort(step, stable=True)
+    return by_step[torch.argsort(min_micro[by_step], descending=True, stable=True)]
+
+
+def order_setter(order: str, tail) -> Callable[[], None]:
+    """What makes the wrappers' next launch on ``tail``'s tuning take its
+    chains in ``order``: ``"measured"`` leaves the measurement of the
+    launches before; ``"index"`` forgets it; ``"cost"`` puts in its place a
+    score that sorts into :func:`cost_order`."""
+    if order == "measured":
+        return lambda: None
+    if order == "index":
+        return lambda: ft._MEASURED.__setitem__(slice(None), [None, None])
+    by_cost = cost_order(tail[0], tail[2])
+    score = torch.empty_like(by_cost)
+    score[by_cost] = torch.arange(by_cost.shape[0], 0, -1, device=by_cost.device)
+    key = ft._tuning_key(*tail[:3])
+    return lambda: ft._MEASURED.__setitem__(slice(None), [key, score])
+
+
 def sweep_transition(card: str) -> None:
     lib, report = build("fused_transition", TRANSITION_GEOMETRIES)
-    model = kernels.logistic_regression_vg(ROWS, DIM, device="cuda")
-    vg = model[0]
-    n_draws, md, mh = 8, 5, 8
-    inp = ft.synthetic_transition_inputs(CHAINS, DIM, 2031, num_draws=n_draws,
-                                         theta_scale=0.3, inv_mass_scale=0.005,
-                                         step_range=(0.3, 1.0))
-    t = ft.transition_tensors(vg, inp, "cuda")
-    tail = (t["step"], t["inv_mass"], t["min_micro"], 0.5)
-    static = dict(max_depth=md, max_step_halvings=mh)
-    one_args = (5, t["theta"], t["rho"][0].contiguous(), t["logp0"], t["grad0"], *tail)
-    block_args = (5, t["theta"], t["logp0"], t["grad0"], t["rho"], *tail)
-    want_one = ft.fused_transition_plain(vg, *one_args, **static)
-    want_block = ft.fused_sample_block_plain(vg, *block_args, **static)
+    ws = chip_smoke.warmed_state()
+    model, xy, tail = chip_smoke._transition_setup(ws)
+    md, mh, n_draws, n_single = chip_smoke.MAX_DEPTH, chip_smoke.HALVINGS, 100, 20
+    base = prng.key(chip_smoke.SEED + 3, "cuda")
+    lp0, g0 = logreg_value_grad(ws.theta, *xy)
+    rho_b = chip_smoke._momenta(prng.fold_in(base, 1000), (n_draws, CHAINS, DIM),
+                                tail[1][None])
+    rho_a = [chip_smoke._momenta(prng.fold_in(base, i), (CHAINS, DIM), tail[1])
+             for i in range(n_single)]
+    ops_eval = 7 * DIM + 4 * ROWS * DIM
+    consts = ROWS * DIM + ROWS
     saved = _cuda._LIBRARIES.get("fused_transition")
+    first = None
     try:
-        for i, (w,) in enumerate(TRANSITION_GEOMETRIES):
+        for i, (w, g) in enumerate(TRANSITION_GEOMETRIES):
             _cuda._LIBRARIES["fused_transition"] = _Variant(lib, i)
-            one = ft.make_fused_transition(model, DIM, md, mh)
-            block = ft.make_fused_sample_block(model, DIM, md, mh, n_draws)
-            got_one, got_block = one(*one_args), block(*block_args)
-            torch.cuda.synchronize()
-            same_one = float(((got_one[3] == want_one[3])
-                              & (got_one[4] == want_one[4])).float().mean())
-            same_block = float((got_block[5] == want_block[5]).float().mean())
-            ms_one = time_ms(lambda: one(*one_args), 5, warmup=1)
-            ms_block = time_ms(lambda: block(*block_args), 3, warmup=1)
             rep = report.get((w, True), {})
-            print(f"[sweep] 5a / 5b logreg body, {w} warps"
-                  f"{' *' if i == 0 else ''}: 5a {ms_one:.4f} ms, 5b ({n_draws} "
-                  f"draws) {ms_block:.4f} ms; depth and n_grads equal to plain on "
-                  f"{same_one:.4f} / {same_block:.4f} of the chains; registers "
-                  f"{rep.get('registers')}, spill stores {rep.get('spill_stores')} "
-                  f"bytes  [{card}]", flush=True)
+            for order in ORDERS if w == TRANSITION_GEOMETRIES[0][0] else ORDERS[:1]:
+                one = ft.make_fused_transition(model, DIM, md, mh)
+                block = ft.make_fused_sample_block(model, DIM, md, mh, n_draws)
+                set_order = order_setter(order, tail)
+
+                def run_b():
+                    set_order()
+                    return block(17, ws.theta, lp0, g0, rho_b, *tail)
+
+                ft._MEASURED[:] = [None, None]
+                run_b()
+                run_b()
+                outs = [_event_ms(run_b) for _ in range(3)]
+                got_b = outs[0][0]
+                ms_b = [o[1] for o in outs]
+                ng = got_b[5].to(torch.int64)
+                block.trace = torch.zeros((CHAINS, 3), dtype=torch.int64,
+                                          device="cuda")
+                run_b()
+                where_b = trace_summary(block.trace, ng)
+                block.trace = None
+                bound_b, _ = chip_smoke.bound(
+                    4.0 * (CHAINS * DIM * (5 + 2 * n_draws)
+                           + CHAINS * (6 + n_draws) + consts),
+                    float(ng.sum()) * ops_eval)
+                got_a, ms_a = [], []
+                for j, rho in enumerate(rho_a):
+                    set_order()
+                    out, ms = _event_ms(lambda: one(100 + j, ws.theta, rho, lp0, g0,
+                                                    *tail))
+                    got_a.append(out[4])
+                    ms_a.append(ms)
+                ng_a = torch.stack(got_a).to(torch.int64)
+                bound_a, _ = chip_smoke.bound(
+                    4.0 * (CHAINS * DIM * 6 + CHAINS * 6 + consts),
+                    float(ng_a.sum() - CHAINS * n_single) / n_single * ops_eval)
+                if first is None:
+                    first = (ng, ng_a)
+                    # how well the cost proxy foretells a chain's work
+                    by_cost = ng[cost_order(tail[0], tail[2])]
+                    tenth = CHAINS // 10
+                    print(f"[sweep] 5b's per-chain n_grads in cost order: first "
+                          f"tenth mean {float(by_cost[:tenth].float().mean()):.1f}, "
+                          f"last tenth {float(by_cost[-tenth:].float().mean()):.1f}, "
+                          f"all {float(ng.float().mean()):.1f}; the largest chain "
+                          f"taken {int(torch.argmax(by_cost))}th of {CHAINS}; "
+                          f"min_micro values {torch.unique(tail[2]).tolist()}  "
+                          f"[{card}]", flush=True)
+                    # and how well a launch's per-chain n_grads foretells
+                    # the next launch's (from its final state, other momenta)
+                    rho_2 = chip_smoke._momenta(prng.fold_in(base, 1001),
+                                                (n_draws, CHAINS, DIM), tail[1][None])
+                    nxt = block(18, got_b[2], got_b[4], got_b[3], rho_2, *tail)[5]
+                    nxt = nxt.to(torch.int64)
+                    both = torch.stack([ng, nxt]).double()
+                    top1 = torch.argsort(nxt, descending=True)[:CHAINS // 100]
+                    top5 = torch.argsort(ng, descending=True)[:CHAINS // 20]
+                    kept = float(torch.isin(top1, top5).float().mean())
+                    print(f"[sweep] 5b's per-chain n_grads, this launch against "
+                          f"the next: correlation "
+                          f"{float(torch.corrcoef(both)[0, 1]):.3f}; of the next "
+                          f"launch's top 1 %, {kept:.3f} were in this launch's top "
+                          f"5 %; largest {int(ng.max())} and {int(nxt.max())}  "
+                          f"[{card}]", flush=True)
+                same_b = float((ng == first[0]).float().mean())
+                same_a = float((ng_a == first[1]).all(0).float().mean())
+                launched = (w == TRANSITION_GEOMETRIES[0][0] and order == ORDERS[0])
+                star_b = " *" if launched and g == ft.FusedSampleBlock.GROUP_WARPS else ""
+                star_a = " *" if launched and g == ft.FusedTransition.GROUP_WARPS else ""
+                print(f"[sweep] 5a / 5b logreg body, {w} warps, {g} warps a chain, "
+                      f"{order} order: 5b (100 draws){star_b} "
+                      f"{', '.join(f'{m:.3f}' for m in ms_b)} ms, bound "
+                      f"{bound_b:.3f} ms, {bound_b / np.mean(ms_b):.4f} of it, "
+                      f"largest per-chain n_grads {int(ng.max())}; 5a{star_a} "
+                      f"{np.mean(ms_a):.4f} ms a launch (largest {max(ms_a):.4f}), "
+                      f"bound {bound_a * 1e3:.3f} us, {bound_a / np.mean(ms_a):.4f} "
+                      f"of it; n_grads equal to the first geometry's on "
+                      f"{same_a:.4f} / {same_b:.4f} of the chains; registers "
+                      f"{rep.get('registers')}, spill stores "
+                      f"{rep.get('spill_stores')} bytes  [{card}]", flush=True)
+                print(f"[sweep]   5b's trace: {where_b}", flush=True)
     finally:
+        ft._MEASURED[:] = [None, None]
         if saved is None:
             _cuda._LIBRARIES.pop("fused_transition", None)
         else:
@@ -297,9 +461,10 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    sweep_logreg(card)
-    sweep_integrator(card)
-    sweep_transition(card)
+    parts = {"logreg": sweep_logreg, "integrator": sweep_integrator,
+             "transition": sweep_transition}
+    for name in sys.argv[1:] or parts:
+        parts[name](card)
 
 
 if __name__ == "__main__":

@@ -49,6 +49,9 @@ _NOT_PORTED = {
     "batched_groups": ((1,), "cost-sorted chain groups (ROADMAP.md Queue 1)"),
     "model_dtype": ((None,), "precision islands (ROADMAP.md Queue 1)"),
     "checkpoint_dir": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
+    "checkpoint_every": ((1,), "checkpoint and resume (ROADMAP.md Queue 1)"),
+    "checkpoint_keep_last_n": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
+    "resume": ((True,), "checkpoint and resume (ROADMAP.md Queue 1)"),
     "thin": ((1,), "thinning (ROADMAP.md Queue 1)"),
     "keep_dims": ((None,), "dimension subsets (ROADMAP.md Queue 1)"),
     "bf16_ends": ((False,), "bfloat16 merge-stack endpoints (ROADMAP.md Queue 1)"),

@@ -28,39 +28,57 @@
 //
 // What bounds it on the H100: operations. A transition reads and writes a
 // few rows of D values a chain, and evaluates the model ~10 times and more.
+// A launch ends with its slowest chain, and chains differ by 10x in their
+// evaluations: in a sample block of 100 logistic-regression draws the
+// largest per-chain count is ~3.8x the mean, and that chain alone, one
+// warp among 16 on a busy SM, ran ~43 ms against the ~29 ms the whole
+// block's work took the card.
 //
 // Design. On the TPU a tile of chains steps the machine in lock step: every
 // attempt integrates to the tile's largest step count under masks, every
 // merge level is computed on every lane and selected, and the tile loops
-// until its slowest chain is done. Here one warp owns one chain and runs
-// that chain's own `while (!done)`: it integrates the chain's own step
-// count, merges only the levels this leaf merges (the stack slot is an
-// index), hashes only the uniforms it uses, and retires or takes its next
-// chain when done. The scalars of the machine (joints, weights, counters,
-// flags) are warp-uniform registers.
+// until its slowest chain is done. Here a warp runs one chain's own
+// `while (!done)`: it integrates the chain's own step count, merges only
+// the levels this leaf merges (the stack slot is an index), and hashes only
+// the uniforms it uses. The scalars of the machine (joints, weights,
+// counters, flags) are warp-uniform registers.
 //
-// - The spans live in a workspace in device memory that the wrapper
-//   allocates, (8 max_depth + 22) rows of D floats a chain: the orbit (8
-//   rows: theta, rho, grad at the backward end and at the forward end, the
-//   selected theta and grad), the leaf being merged (8), the macro step's
-//   start (3), the forward attempt's end (3) and max_depth stack slots (8
-//   each); 25 MB at 4096 chains, D = 25, max_depth = 5, which the card's
-//   50 MB L2 holds. Shared memory was not chosen: the logistic-regression
-//   body already stages X there (116 KB of the block's 227 KB at N = 1000),
-//   and a wide model or a deep tree would not fit beside it. The rows are
-//   touched a few times per attempt, the model is evaluated steps_total
-//   times, so the workspace is not what bounds the kernel. Only the cursor
-//   (theta, rho, grad) and inv_mass stay in registers.
+// - A persistent grid fed by a counter: as many blocks as the card holds
+//   at once (no more than the chains need), each warp, or group of warps,
+//   taking its next chain from `sched` (an int32 counter that is 0 at
+//   launch, then the chain indices in the order they are taken) until none
+//   is left. The wrapper orders the chains most expensive first by the
+//   evaluations the launches before measured for them, so the long chains
+//   start at once and the chains that end last are short ones; 8 warps a
+//   block keep a long chain's share of its SM's issue slots up. A chain's
+//   result depends on nothing but its own inputs, not on the warp that
+//   runs it or the order.
+// - Each chain runner (a warp, or a group's leader) has its own span
+//   workspace in device memory that the wrapper allocates, (8 max_depth +
+//   22) rows of D floats: the orbit (8 rows: theta, rho, grad at the
+//   backward and at the forward end, the selected theta and grad), the leaf
+//   being merged (8), the macro step's start (3), the forward attempt's end
+//   (3) and max_depth stack slots (8 each), then the slots' four scalars
+//   (once a warp, not a copy in every lane's local memory). At the sizes
+//   timed it stays in the 50 MB L2 (1056 runners x 6.3 KB at D = 25,
+//   max_depth 5); in shared memory beside X it timed alike on the card.
+//   Only the cursor (theta, rho, grad) and inv_mass stay in registers.
 // - The row helpers stride the features over the lanes, whatever layout the
 //   cursor has, and every helper that writes rows ends with __syncwarp(),
 //   so any lane may read any element afterwards.
-// - Standard normal, funnel, ill-conditioned normal (models.cuh): a block of
-//   8 warps takes 8 chains; the cursor is strided over the lanes (4
+// - Standard normal, funnel, ill-conditioned normal (models.cuh): blocks of
+//   8 warps, a warp a chain; the cursor is strided over the lanes (4
 //   registers a lane for D <= 128, 32 for D <= 1024).
-// - Logistic regression (logreg_chain.cuh): as in integrator.cu, a block of
-//   16 warps stages X once (at the width P rounded up to 4) and takes 32
-//   chains, each warp its 2 chains in turn, lane k holding feature k of the
-//   cursor.
+// - Logistic regression (logreg_chain.cuh): one block of 8 warps per SM
+//   stages X once (at the width P rounded up to 4), lane k of a warp holding
+//   feature k of the cursor. A chain is run by a group of G warps (G = 1, 2
+//   or 4, the wrapper's choice): its leader runs the chain's control (tree,
+//   halvings, U-turns) and takes the chains from the counter; at each
+//   evaluation its helpers sum their share of the rows, meet it at the
+//   group's named barrier (bar.sync) and wait there for the next one. So
+//   the chain that ends a launch takes about 1 / G of a warp's time per
+//   evaluation, while the control is run once. The leader adds the
+//   partial sums in rank order: a launch repeats bit for bit.
 //
 // Limits, checked by the wrapper (ValueError): float32 only, D <= 1024
 // (logistic regression: D <= 32, N <= 1024 rows), max_depth <= 16.
@@ -80,9 +98,8 @@
 namespace {
 
 constexpr int WARPS = 8;       // warps per block of the simple bodies' kernel
-constexpr int MAX_DEPTH = 16;  // stack slots whose scalars a thread keeps
-constexpr int LOGREG_WARPS = 16;  // warps per block of the logistic-regression kernel
-constexpr int LOGREG_TILE = 32;   // its chains per block: two a warp, in turn
+constexpr int MAX_DEPTH = 16;  // the deepest tree the entry points take
+constexpr int LOGREG_WARPS = 8;  // warps per block of the logistic-regression kernel
 
 // The operands of both entry points: every pointer, then the sizes, then
 // the float scalars. Mirrors ops/fused_transition.py::TransitionArgs field
@@ -91,16 +108,21 @@ struct TransitionArgs {
   const float *theta, *rho, *logp0, *grad0, *step, *inv_mass;  // inputs
   const int* min_micro;
   const void *c0, *c1;  // the body's constants
-  float* work;          // (C, 8 max_depth + 22, D)
+  float* work;          // (runners, 8 max_depth + 22, D): a workspace per runner
+  int* sched;           // (C + 1): the counter, 0 at launch, then chain indices
+  long long* trace;     // (C, 3) or null: per chain its start and end (ns), SM
   float *draws, *logps;  // (N, C, D), (N, C); null for a single transition
   float *theta_out, *grad_out, *logp_out;
   int *depth_out, *ngrads_out;  // depth_out null for a sample block
   int chains, dim, num_draws, body, max_depth, max_step_halvings, n_data, seed;
   int skip_first_grad;  // 1: n_grads leaves out each draw's first evaluation
+  int sms;              // SMs of the card
+  int group;            // logistic regression: warps a chain (1, 2 or 4)
   float max_error, p0, p1;
 };
 
-// rows of the workspace, in units of D floats
+// rows of the workspace, in units of D floats; the stack's scalars follow
+// its rows
 constexpr int ACC = 0, LEAF = 8, MS = 16, FWD = 19, STACK = 22;
 // rows of a span
 constexpr int TB = 0, RB = 1, TF = 3, RF = 4, TS = 6, GS = 7;
@@ -253,19 +275,16 @@ struct StridedCursor {
 };
 
 // The cursor of the logistic-regression body: lane k holds feature k (0 at
-// k >= P), the coefficients are broadcast to every lane inside each step.
+// k >= P); the evaluation is shared by the warps of a group
+// (logreg_eval_group).
 template <int KP>
 struct LogregCursor {
   float th, rh, gr, im;
-  const float *xs, *ys;
-  int N, P, lane;
+  wt::LogregGroup ev;
+  int P, lane;
 
-  __device__ __forceinline__ void init(const float* xs_, const float* ys_,
-                                       int N_, const float* inv_mass, int P_,
+  __device__ __forceinline__ void init(const float* inv_mass, int P_,
                                        int lane_) {
-    xs = xs_;
-    ys = ys_;
-    N = N_;
     P = P_;
     lane = lane_;
     im = lane < P ? inv_mass[lane] : 0.f;
@@ -288,7 +307,7 @@ struct LogregCursor {
     return -0.5f * wt::warp_sum((im * rh) * rh);
   }
   __device__ __forceinline__ float integrate(float h, int n) {
-    return wt::leapfrog_logreg<KP>(th, rh, gr, im, xs, ys, N, h, n, lane);
+    return wt::leapfrog_logreg_group<KP>(th, rh, gr, im, ev, h, n, lane);
   }
 };
 
@@ -312,7 +331,8 @@ __device__ __forceinline__ Outcome transition(Cursor& cur, float* work, const fl
   float* leaf = work + LEAF * D;
   float* ms = work + MS * D;
   float* fwd = work + FWD * D;
-  SpanScalars stack_s[MAX_DEPTH];
+  // the scalars of the stack's spans, once a warp (not a copy a lane)
+  SpanScalars* stack_s = reinterpret_cast<SpanScalars*>(work + (STACK + 8 * MD) * D);
 
   // theta0 and grad0 are read and the orbit's rows written feature by
   // feature in the same lane, so the aliasing is safe
@@ -384,8 +404,8 @@ __device__ __forceinline__ Outcome transition(Cursor& cur, float* work, const fl
     const bool subtree_done = leaf_ok && leaf_idx + 1 >= n_leaves;
     const bool push = leaf_ok && !subtree_done;
     if (push) {
+      if (lane == 0) stack_s[n_merges] = leaf_s;
       copy_rows(work + (STACK + 8 * n_merges) * D, leaf, 8 * D, lane);
-      stack_s[n_merges] = leaf_s;
     }
 
     // the orbit: Metropolis combine and U-turn
@@ -443,14 +463,24 @@ __device__ __forceinline__ Outcome transition(Cursor& cur, float* work, const fl
   return Outcome{acc_s.ls, out_depth, n_grads};
 }
 
-// All num_draws transitions of chain c.
+// The card's clock in nanoseconds, and the SM a thread runs on.
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ int sm_id() {
+  int s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  return s;
+}
+
+// All num_draws transitions of chain c, in the warp's workspace `work`.
 template <class Cursor>
-__device__ __forceinline__ void run_chain(const TransitionArgs& a, Cursor& cur, int c,
-                          int lane) {
+__device__ __forceinline__ void run_chain(const TransitionArgs& a, Cursor& cur,
+                                          int c, float* work, int lane) {
   const int D = a.dim, C = a.chains;
   const size_t row = static_cast<size_t>(c) * D;
-  float* work =
-      a.work + static_cast<size_t>(c) * (STACK + 8 * a.max_depth) * D;
   const float* inv_mass = a.inv_mass + row;
   const Rng rng{hash32(static_cast<uint32_t>(a.seed) ^ 0x9E3779B9u) ^
                 hash32(static_cast<uint32_t>(c))};
@@ -460,6 +490,10 @@ __device__ __forceinline__ void run_chain(const TransitionArgs& a, Cursor& cur, 
   const float* grad0 = a.grad0 + row;
   float lp = a.logp0[c];
   int n_grads = 0, depth = 0;
+  if (a.trace != nullptr && lane == 0) {
+    a.trace[3 * c] = global_ns();
+    a.trace[3 * c + 2] = sm_id();
+  }
   for (int i = 0; i < a.num_draws; ++i) {
     const size_t at = static_cast<size_t>(i) * C + c;
     // decision streams of successive draws start a large odd stride apart
@@ -484,95 +518,205 @@ __device__ __forceinline__ void run_chain(const TransitionArgs& a, Cursor& cur, 
     a.logp_out[c] = lp;
     a.ngrads_out[c] = n_grads;
     if (a.depth_out != nullptr) a.depth_out[c] = depth;
+    if (a.trace != nullptr) a.trace[3 * c + 1] = global_ns();
   }
+}
+
+// The next chain for a warp, -1 when none is left: lane 0 takes the next
+// index from the counter sched[0].
+__device__ __forceinline__ int next_chain(int* sched, int C, int lane) {
+  int i = 0;
+  if (lane == 0) i = atomicAdd(sched, 1);
+  i = __shfl_sync(0xffffffffu, i, 0);
+  return i < C ? sched[1 + i] : -1;
+}
+
+// Floats of a runner's span workspace: (8 max_depth + 22) rows of D
+// floats, then the 4 scalars of each of the max_depth stack slots.
+__host__ __device__ __forceinline__ size_t work_floats(int max_depth, int D) {
+  return static_cast<size_t>(STACK + 8 * max_depth) * D + 4 * max_depth;
+}
+
+// The span workspace of the block's `runner`th chain runner, of `runners`
+// a block.
+__device__ __forceinline__ float* runner_work(const TransitionArgs& a,
+                                              int runner, int runners) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * runners + runner;
+  return a.work + at * work_floats(a.max_depth, a.dim);
 }
 
 template <int NR, template <typename, int> class Model>
 __global__ void __launch_bounds__(WARPS * 32)
     transition_kernel(TransitionArgs a) {
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (c >= a.chains) return;  // warp-uniform
+  float* work = runner_work(a, threadIdx.x >> 5, WARPS);
   const wt::ModelParams<float> params{static_cast<const float*>(a.c0), a.p0,
                                       a.p1};
-  StridedCursor<NR, Model> cur;
-  cur.init(params, a.inv_mass + static_cast<size_t>(c) * a.dim, a.dim, lane);
-  run_chain(a, cur, c, lane);
-}
-
-template <int KP, int W>
-__global__ void __launch_bounds__(W * 32, 1)
-    transition_logreg_kernel(TransitionArgs a) {
-  static_assert(LOGREG_TILE % W == 0, "whole chains a warp");
-  extern __shared__ float4 smem[];
-  const int N = a.n_data;
-  float* xs = reinterpret_cast<float*>(smem);  // N rows at width KP
-  float* ys = xs + N * wt::logreg_stride(KP);  // N
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  wt::logreg_stage<KP>(static_cast<const float*>(a.c0),
-                       static_cast<const float*>(a.c1), xs, ys, N, a.dim);
-  __syncthreads();
-  for (int ci = 0; ci < LOGREG_TILE / W; ++ci) {
-    const int c = blockIdx.x * LOGREG_TILE + ci * W + warp;
-    if (c >= a.chains) break;  // warp-uniform; no block-wide sync follows
-    LogregCursor<KP> cur;
-    cur.init(xs, ys, N, a.inv_mass + static_cast<size_t>(c) * a.dim, a.dim,
-             lane);
-    run_chain(a, cur, c, lane);
+  for (;;) {
+    const int c = next_chain(a.sched, a.chains, lane);
+    if (c < 0) break;  // warp-uniform; no block-wide sync follows
+    StridedCursor<NR, Model> cur;
+    cur.init(params, a.inv_mass + static_cast<size_t>(c) * a.dim, a.dim, lane);
+    run_chain(a, cur, c, work, lane);
   }
 }
 
-template <int KP, int W = LOGREG_WARPS>
-cudaError_t launch_logreg(const TransitionArgs& a, cudaStream_t stream) {
-  const size_t smem = wt::logreg_smem_bytes(KP, a.n_data);
+// Shared memory of the logistic-regression kernel, in floats: X (N rows at
+// the padded width), y (N rounded up to 4), then per group (at most W) its
+// exchange (LOGREG_PART a warp: W LOGREG_PART in all, rounded up to 4), its
+// coefficient slot (KP) and its command word (rounded up to 4).
+template <int KP, int W>
+struct LogregSmem {
+  static constexpr int PART = (W * wt::LOGREG_PART + 3) / 4 * 4;
+  int ys, part, coef, command, total;
+  __host__ __device__ explicit LogregSmem(int N)
+      : ys(N * wt::logreg_stride(KP)),
+        part(ys + (N + 3) / 4 * 4),
+        coef(part + PART),
+        command(coef + W * KP),
+        total(command + (W + 3) / 4 * 4) {}
+};
+
+// Groups of G warps: the leader (rank 0) runs a chain, the helpers share
+// its evaluations.
+template <int KP, int W>
+__global__ void __launch_bounds__(W * 32, 1)
+    transition_logreg_kernel(TransitionArgs a) {
+  extern __shared__ float4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  const LogregSmem<KP, W> at(a.n_data);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int G = a.group, grp = warp / G, rank = warp % G;
+  wt::logreg_stage<KP>(static_cast<const float*>(a.c0),
+                       static_cast<const float*>(a.c1), sm, sm + at.ys,
+                       a.n_data, a.dim);
+  __syncthreads();
+  const wt::LogregGroup ev{sm,
+                           sm + at.ys,
+                           sm + at.coef + grp * KP,
+                           sm + at.part + grp * G * wt::LOGREG_PART,
+                           reinterpret_cast<int*>(sm + at.command) + grp,
+                           a.n_data,
+                           G,
+                           rank,
+                           1 + grp};
+  if (rank > 0) {
+    wt::logreg_help<KP>(ev, lane);
+    return;
+  }
+  float* work = runner_work(a, grp, W / G);
+  LogregCursor<KP> cur;
+  cur.ev = ev;
+  for (;;) {
+    const int c = next_chain(a.sched, a.chains, lane);
+    if (c < 0) break;  // warp-uniform; no block-wide sync follows
+    cur.init(a.inv_mass + static_cast<size_t>(c) * a.dim, a.dim, lane);
+    run_chain(a, cur, c, work, lane);
+  }
+  wt::logreg_release(ev, lane);
+}
+
+// How a launch covers the card: `blocks` blocks of `warps` warps, as many
+// as the card holds at once and no more than the chains need, `runners`
+// of them a block running chains, each with its span workspace.
+struct Plan {
+  const void* kernel;
+  int blocks, warps, runners;
+  size_t smem;
+};
+
+template <class Kernel>
+cudaError_t plan_for(Kernel kernel, int warps, int runners, size_t smem,
+                     const TransitionArgs& a, Plan* p) {
   cudaError_t err = cudaFuncSetAttribute(
-      transition_logreg_kernel<KP, W>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        warps * 32, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (a.chains + LOGREG_TILE - 1) / LOGREG_TILE;
-  transition_logreg_kernel<KP, W><<<blocks, W * 32, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int need = (a.chains + runners - 1) / runners;
+  *p = Plan{reinterpret_cast<const void*>(kernel), min(per_sm * a.sms, need),
+            warps, runners, smem};
+  return cudaSuccess;
+}
+
+template <int KP, int W = LOGREG_WARPS>
+cudaError_t plan_logreg(const TransitionArgs& a, Plan* p) {
+  const int G = a.group;
+  // a named barrier per group: ids 1..15
+  if (!(G == 1 || G == 2 || G == 4) || W % G != 0 || (G > 1 && W / G > 15))
+    return cudaErrorInvalidValue;
+  const size_t smem = LogregSmem<KP, W>(a.n_data).total * sizeof(float);
+  return plan_for(transition_logreg_kernel<KP, W>, W, W / G, smem, a, p);
 }
 
 template <template <typename, int> class Model>
-cudaError_t launch_simple(const TransitionArgs& a, cudaStream_t stream) {
-  const int blocks = (a.chains + WARPS - 1) / WARPS;
+cudaError_t plan_simple(const TransitionArgs& a, Plan* p) {
+  if (a.group != 1) return cudaErrorInvalidValue;
   if (a.dim <= 128)
-    transition_kernel<4, Model><<<blocks, WARPS * 32, 0, stream>>>(a);
-  else
-    transition_kernel<32, Model><<<blocks, WARPS * 32, 0, stream>>>(a);
-  return cudaGetLastError();
+    return plan_for(transition_kernel<4, Model>, WARPS, WARPS, 0, a, p);
+  return plan_for(transition_kernel<32, Model>, WARPS, WARPS, 0, a, p);
 }
 
-cudaError_t launch(const TransitionArgs& a, cudaStream_t stream) {
+cudaError_t plan(const TransitionArgs& a, Plan* p) {
   if (a.chains <= 0 || a.dim <= 0 || a.dim > 1024 || a.num_draws <= 0 ||
-      a.max_depth <= 0 || a.max_depth > MAX_DEPTH || a.max_step_halvings <= 0)
+      a.max_depth <= 0 || a.max_depth > MAX_DEPTH || a.max_step_halvings <= 0 ||
+      a.sms <= 0)
     return cudaErrorInvalidValue;
   switch (a.body) {
     case wt::BODY_STD_NORMAL:
-      return launch_simple<wt::StdNormal>(a, stream);
+      return plan_simple<wt::StdNormal>(a, p);
     case wt::BODY_FUNNEL:
-      return launch_simple<wt::Funnel>(a, stream);
+      return plan_simple<wt::Funnel>(a, p);
     case wt::BODY_ILL_NORMAL:
       if (a.c0 == nullptr) return cudaErrorInvalidValue;
-      return launch_simple<wt::IllNormal>(a, stream);
+      return plan_simple<wt::IllNormal>(a, p);
     case wt::BODY_LOGREG:
       if (a.dim > wt::LOGREG_MAX_FEATURES || a.n_data <= 0 ||
           a.n_data > wt::LOGREG_MAX_ROWS || a.c0 == nullptr || a.c1 == nullptr)
         return cudaErrorInvalidValue;
       return wt::logreg_by_width(a.dim, [&](auto width) {
-        return launch_logreg<decltype(width)::value>(a, stream);
+        return plan_logreg<decltype(width)::value>(a, p);
       });
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+cudaError_t launch_plan(const TransitionArgs& a, const Plan& p,
+                        cudaStream_t stream) {
+  if (a.work == nullptr || a.sched == nullptr) return cudaErrorInvalidValue;
+  void* params[] = {const_cast<TransitionArgs*>(&a)};
+  cudaError_t err = cudaLaunchKernel(p.kernel, dim3(p.blocks), dim3(p.warps * 32),
+                                     params, p.smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t launch(const TransitionArgs& a, cudaStream_t stream) {
+  Plan p;
+  const cudaError_t err = plan(a, &p);
+  return err != cudaSuccess ? err : launch_plan(a, p, stream);
+}
+
 }  // namespace
 
 extern "C" int wt_transition_args_size() {
   return static_cast<int>(sizeof(TransitionArgs));
+}
+
+// The floats of device memory a launch with these operands needs for its
+// runners' span workspaces (work and sched may be null here).
+extern "C" int wt_transition_workspace(const void* args, long long* floats) {
+  const TransitionArgs& a = *static_cast<const TransitionArgs*>(args);
+  Plan p;
+  const cudaError_t err = plan(a, &p);
+  if (err == cudaSuccess)
+    *floats = static_cast<long long>(p.blocks) * p.runners *
+              work_floats(a.max_depth, a.dim);
+  return static_cast<int>(err);
 }
 
 // One transition of every chain: num_draws must be 1, draws and logps null;

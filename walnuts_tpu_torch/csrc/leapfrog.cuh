@@ -1,4 +1,5 @@
-// The leapfrog loop of one chain, by one warp, with the model inlined.
+// The leapfrog loop of one chain, by one warp, with the model inlined (the
+// logistic-regression group version: the model's rows split over a group).
 //
 // Shared by integrator.cu (one attempt per launch) and fused_transition.cu
 // (every attempt of a whole transition). n times, with signed step h:
@@ -65,6 +66,25 @@ __device__ __forceinline__ float leapfrog_logreg(float& th, float& rh,
 #pragma unroll
     for (int k = 0; k < KP; ++k) tv[k] = __shfl_sync(0xffffffffu, th, k);
     lp = logreg_eval<KP>(tv, th, xs, ys, N, lane, gr);
+    rh = rh + half * gr;
+  }
+  return lp;
+}
+
+// The same loop, run by the leader of a group of warps that shares the
+// chain's evaluations (logreg_eval_group).
+template <int KP>
+__device__ __forceinline__ float leapfrog_logreg_group(float& th, float& rh,
+                                                       float& gr, float im,
+                                                       const LogregGroup& e,
+                                                       float h, int n,
+                                                       int lane) {
+  const float half = 0.5f * h;
+  float lp = -INFINITY;
+  for (int i = 0; i < n; ++i) {
+    rh = rh + half * gr;
+    th = th + (h * im) * rh;
+    lp = logreg_eval_group<KP>(th, e, lane, gr);
     rh = rh + half * gr;
   }
   return lp;

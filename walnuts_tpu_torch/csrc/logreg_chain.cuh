@@ -18,6 +18,17 @@
 // reduce-scatter that leaves lane k with feature k. All products are
 // explicit IEEE fp32 FMAs: no tensor cores, no TF32, and no dependence on
 // the compiler's contraction flag.
+//
+// One chain, a group of G warps (the whole-transition kernels): the group's
+// first warp, its leader, runs the chain; at each evaluation it posts the
+// coefficients, and warp `rank` of the group (the leader is rank 0) sums
+// rows rank * 32 + lane, stepping 32 G, so one evaluation takes about 1 / G
+// of a warp's time (logreg_eval_group). The other warps, its helpers, do
+// nothing else (logreg_help): between evaluations they wait at the group's
+// barrier and take no issue slots from the SM. The leader adds the warps'
+// partial sums in rank order, so a chain's result depends on G only
+// through that order. Each warp reads the coefficients from the group's
+// slot in shared memory into registers once an evaluation.
 
 #pragma once
 
@@ -184,6 +195,122 @@ __device__ __forceinline__ float logreg_eval(const float (&th)[KP],
   for (int k = 0; k < KP; ++k) sq = fmaf(th[k], th[k], sq);
   g_own = lane < KP ? g - th_own : 0.f;
   return fmaf(-0.5f, sq, lacc);
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads's) over the `threads` threads of
+// a group of warps.
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// floats of a warp's partial sums in a group's exchange: 32 gradient
+// features, then the log-likelihood
+constexpr int LOGREG_PART = 33;
+
+// What the leader posts to its helpers before each barrier.
+enum LogregCommand { LOGREG_EVAL = 0, LOGREG_EXIT = 1 };
+
+// Where one warp of a group evaluates: the staged rows, the group's
+// coefficient slot (KP floats, 16-byte aligned, written by the leader),
+// its exchange (G x LOGREG_PART floats), its command word, and the warp's
+// place in the group. At each evaluation the group passes the barrier
+// twice: after the leader has posted (helpers read the slot and the
+// command), and after every warp has written its partial sums (the leader
+// reads them before it posts again).
+struct LogregGroup {
+  const float *xs, *ys;
+  float *coef, *part;
+  int* command;
+  int N, G, rank, bar;
+};
+
+// This warp's share of an evaluation at the coefficients in e.coef: its
+// rows' gradient partial, feature `lane` (reduce-scattered over the warp),
+// and its rows' log-likelihood (in every lane).
+template <int KP>
+__device__ __forceinline__ float logreg_partial(const LogregGroup& e, int lane,
+                                                float& lacc) {
+  constexpr int XS = logreg_stride(KP);
+  constexpr int W = logreg_pow2(KP);
+  float th[KP];  // the coefficients, read once an evaluation
+#pragma unroll
+  for (int k = 0; k < KP; k += 4) {
+    const float4 t = reinterpret_cast<const float4*>(e.coef)[k / 4];
+    th[k] = t.x;
+    th[k + 1] = t.y;
+    th[k + 2] = t.z;
+    th[k + 3] = t.w;
+  }
+  float acc[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) acc[k] = 0.f;
+  lacc = 0.f;
+  for (int r = e.rank * 32 + lane; r < e.N; r += 32 * e.G) {
+    float xv[KP];
+    logreg_row<KP>(e.xs + r * XS, xv);
+    const float s = logreg_term(logreg_logit<KP>(th, xv), e.ys[r], lacc);
+    logreg_axpy<KP, W>(s, xv, acc);
+  }
+  lacc = warp_sum(lacc);
+  return reduce_scatter<W>(acc, lane);
+}
+
+// One chain's evaluation by the leader of a group of e.G warps (G = 1: a
+// warp alone, no barrier). th_own: feature `lane` of the coefficients (0 at
+// lane >= KP). Returns the log density and sets g_own to feature `lane` of
+// the gradient.
+template <int KP>
+__device__ __forceinline__ float logreg_eval_group(float th_own,
+                                                   const LogregGroup& e,
+                                                   int lane, float& g_own) {
+  __syncwarp();  // every lane has read the slot of the evaluation before
+  if (lane < KP) e.coef[lane] = th_own;
+  if (lane == 0) *e.command = LOGREG_EVAL;
+  __syncwarp();
+  if (e.G > 1) group_sync(e.bar, 32 * e.G);  // posted
+  float lacc;
+  float g = logreg_partial<KP>(e, lane, lacc);
+  if (e.G > 1) {
+    group_sync(e.bar, 32 * e.G);  // every helper's partial is written
+    for (int q = 1; q < e.G; ++q) {
+      g += e.part[q * LOGREG_PART + lane];
+      lacc += e.part[q * LOGREG_PART + 32];
+    }
+  }
+  float sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < KP; k += 4) {
+    const float4 t = reinterpret_cast<const float4*>(e.coef)[k / 4];
+    sq = fmaf(t.x, t.x, sq);
+    sq = fmaf(t.y, t.y, sq);
+    sq = fmaf(t.z, t.z, sq);
+    sq = fmaf(t.w, t.w, sq);
+  }
+  g_own = lane < KP ? g - th_own : 0.f;
+  return fmaf(-0.5f, sq, lacc);
+}
+
+// A helper of a group (rank >= 1): its share of every evaluation the leader
+// posts, until the leader posts LOGREG_EXIT.
+template <int KP>
+__device__ __forceinline__ void logreg_help(const LogregGroup& e, int lane) {
+  for (;;) {
+    group_sync(e.bar, 32 * e.G);  // posted
+    if (*e.command == LOGREG_EXIT) return;
+    float lacc;
+    const float g = logreg_partial<KP>(e, lane, lacc);
+    e.part[e.rank * LOGREG_PART + lane] = g;
+    if (lane == 0) e.part[e.rank * LOGREG_PART + 32] = lacc;
+    group_sync(e.bar, 32 * e.G);  // written
+  }
+}
+
+// The leader's last post: its helpers return from logreg_help.
+__device__ __forceinline__ void logreg_release(const LogregGroup& e, int lane) {
+  if (e.G == 1) return;
+  if (lane == 0) *e.command = LOGREG_EXIT;
+  __syncwarp();
+  group_sync(e.bar, 32 * e.G);
 }
 
 }  // namespace wt

@@ -64,12 +64,15 @@ _SIGNATURES = {
         "wt_fused_transition": [ctypes.c_void_p, ctypes.c_void_p],
         "wt_fused_sample_block": [ctypes.c_void_p, ctypes.c_void_p],
         "wt_transition_args_size": [],
+        # the address of a TransitionArgs struct, the address of an int64
+        "wt_transition_workspace": [ctypes.c_void_p, ctypes.c_void_p],
     },
 }
 
 _LIBRARIES: dict = {}
 #: per library: {"seconds": build seconds (0.0 when reused), "log": nvcc's
-#: stderr, which carries ptxas' register and shared-memory report}
+#: stderr, which carries ptxas' register and shared-memory report (kept
+#: beside the library as ``.log``, so a reused library has it too)}
 BUILD_INFO: dict = {}
 
 
@@ -139,11 +142,17 @@ def build(*names: str) -> None:
                 errors.append(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                               f"{stdout}\n{stderr}")
             else:
-                os.replace(tmp, out)  # atomic: concurrent builds agree
+                with open(tmp + ".log", "w") as f:
+                    f.write(stderr)
+                # atomic: concurrent builds agree; the log first, so a
+                # library that exists has its log
+                os.replace(tmp + ".log", out.with_suffix(".log"))
+                os.replace(tmp, out)
                 _BUILT[name] = (time.perf_counter() - t0, stderr)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            for path in (tmp, tmp + ".log"):
+                if os.path.exists(path):
+                    os.unlink(path)
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -155,7 +164,10 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     build(name)
     _, _, out = _target(name)
-    seconds, log = _BUILT.get(name, (0.0, ""))
+    seconds, log = _BUILT.get(name, (0.0, None))
+    if log is None:
+        kept = out.with_suffix(".log")
+        log = kept.read_text() if kept.exists() else ""
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)

@@ -32,6 +32,13 @@ plain PyTorch versions (a Python loop while any chain is live, one host
 read per attempt). The callables the factories return check their
 arguments on either device, then take the plain version for CPU tensors
 and ``csrc/fused_transition.cu`` for CUDA tensors. float32 only.
+
+On the card the chains are handed to the warps by a counter, in the order
+of :func:`chain_schedule` (the per-chain work measured by the launches
+before on the same tuning, largest first), and a logistic-regression chain
+is run by a group of ``GROUP_WARPS`` warps that split its rows (5a 2, 5b
+1). The order never changes a chain's result; the group changes only the
+order of the evaluation's sums.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from walnuts_tpu_torch.ops.integrator import (
 )
 from walnuts_tpu_torch.ops.logreg_fused import MAX_FEATURES as MAX_LOGREG_FEATURES
 
-#: stack slots whose scalars a thread of the kernel keeps
+#: the deepest tree (``max_depth``) the kernels take
 MAX_DEPTH = 16
 
 _M32 = 0xFFFFFFFF
@@ -342,15 +349,11 @@ def fused_sample_block_plain(vg: Callable, seed, theta, logp0, grad0, rho, step,
 
 
 _POINTERS = ("theta", "rho", "logp0", "grad0", "step", "inv_mass", "min_micro",
-             "c0", "c1", "work", "draws", "logps", "theta_out", "grad_out",
-             "logp_out", "depth_out", "ngrads_out")
+             "c0", "c1", "work", "sched", "trace", "draws", "logps", "theta_out",
+             "grad_out", "logp_out", "depth_out", "ngrads_out")
 _INTS = ("chains", "dim", "num_draws", "body", "max_depth", "max_step_halvings",
-         "n_data", "seed", "skip_first_grad")
+         "n_data", "seed", "skip_first_grad", "sms", "group")
 _FLOATS = ("max_error", "p0", "p1")
-#: rows of D floats a chain has in the kernel's workspace, beside 8 per
-#: stack slot: the orbit (8), the leaf being merged (8), the macro step's
-#: start (3) and the forward attempt's end (3)
-WORK_ROWS = 22
 
 
 class TransitionArgs(ctypes.Structure):
@@ -361,12 +364,33 @@ class TransitionArgs(ctypes.Structure):
                 + [(n, ctypes.c_float) for n in _FLOATS])
 
 
+def chain_schedule(c: int, measured=None, device=None) -> torch.Tensor:
+    """The kernel's ``sched`` operand, made anew for every launch: an int32
+    counter at 0, then the ``c`` chain indices in the order the warps take
+    them. Most evaluations first by ``measured``, the per-chain ``n_grads``
+    of the launches before on the same chains and tuning (from one block of
+    100 logistic-regression draws to the next their correlation was 0.925
+    on the card), so that the chains left for the end of a launch are
+    short; ties, and every chain when nothing was measured, in index
+    order."""
+    sched = torch.zeros(c + 1, dtype=torch.int32, device=device)
+    sched[1:] = (torch.arange(c, device=device) if measured is None
+                 else torch.argsort(measured, descending=True, stable=True))
+    return sched
+
+
 class _FusedMachine:
     """What both entry points share: the model, the static sizes, the
     argument checks and the kernel's launch. ``launches`` counts the
-    kernel's launches."""
+    kernel's launches. On the card, ``GROUP_WARPS`` warps share a
+    logistic-regression chain (a constant of each entry point, from a sweep
+    on the H100). ``trace``, None or a contiguous ``(C, 3)`` int64 tensor on
+    the card, receives each chain's start and end on the card's clock (ns)
+    and its SM at every launch."""
 
     name = ""
+    GROUP_WARPS = 1
+    trace = None
 
     def __init__(self, model, dim: int, max_depth: int, max_step_halvings: int):
         vg = model[0] if isinstance(model, tuple) else model
@@ -438,6 +462,7 @@ class _FusedMachine:
             raise ValueError(
                 f"{name}: no device body for {body!r} in csrc/models.cuh; on "
                 f"CUDA tensors the model must be one of {sorted(BODIES)}")
+        group = self.GROUP_WARPS if body == "logistic_regression" else 1
         from walnuts_tpu_torch.ops import _cuda
 
         lib = _cuda.library("fused_transition")
@@ -447,24 +472,67 @@ class _FusedMachine:
         consts = self._consts.get(dev)
         if consts is None:
             consts = self._consts[dev] = kernel_consts(vg, dev, torch.float32)
-        # the spans of every chain; the kernel writes each row before it
-        # reads it
-        work = torch.empty((c, WORK_ROWS + 8 * self.max_depth, d),
-                           dtype=torch.float32, device=dev)
+        tuning = _tuning_key(operands["step"], operands["inv_mass"],
+                             operands["min_micro"])
+        measured = _MEASURED[1] if _MEASURED[0] == tuning else None
         p0, p1, n_data = body_scalars(vg, d)
         ptrs = {n: t.data_ptr() for n, t in operands.items()}
         ptrs.update(zip(("c0", "c1"), (t.data_ptr() for t in consts)))
         args = TransitionArgs(
-            work=work.data_ptr(), chains=c, dim=d, num_draws=num_draws,
-            body=BODIES[body], max_depth=self.max_depth,
-            max_step_halvings=self.max_step_halvings, n_data=n_data,
-            seed=_as_int32(seed), skip_first_grad=skip_first_grad,
-            max_error=float(max_error), p0=p0, p1=p1, **ptrs)
+            chains=c, dim=d, num_draws=num_draws, body=BODIES[body],
+            max_depth=self.max_depth, max_step_halvings=self.max_step_halvings,
+            n_data=n_data, seed=_as_int32(seed), skip_first_grad=skip_first_grad,
+            sms=_sm_count(dev), group=group, max_error=float(max_error), p0=p0,
+            p1=p1, **ptrs)
         with torch.cuda.device(dev):
+            floats = ctypes.c_longlong(0)
+            _cuda.check(lib.wt_transition_workspace(ctypes.addressof(args),
+                                                    ctypes.addressof(floats)),
+                        "wt_transition_workspace")
+            # the warps' span workspaces (each row written before it is
+            # read), the counter and the order
+            work = torch.empty(floats.value, dtype=torch.float32, device=dev)
+            sched = chain_schedule(c, measured, dev)
+            args.work = work.data_ptr()
+            args.sched = sched.data_ptr()
+            if self.trace is not None:
+                if (self.trace.dtype != torch.int64 or self.trace.device != dev
+                        or tuple(self.trace.shape) != (c, 3)
+                        or not self.trace.is_contiguous()):
+                    raise ValueError(f"{name}: trace must be a contiguous int64 "
+                                     f"({c}, 3) tensor on {dev}")
+                args.trace = self.trace.data_ptr()
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, entry)(ctypes.addressof(args), stream)
         _cuda.check(err, entry)
         self.launches += 1
+        n_grads = operands["ngrads_out"].to(torch.int64)
+        _MEASURED[:] = [tuning, n_grads if measured is None else measured + n_grads]
+
+
+_SMS: dict = {}  # device -> its multiprocessor count
+# The per-chain evaluations the kernels made, summed over the launches on
+# the same chains and tuning: [key, int64 (C,) tensor on the card]. The key
+# is the identity of step, inv_mass and min_micro (data pointer and version)
+# and the chain count: a sampling path passes the same tensors launch after
+# launch. One entry, shared by both entry points, so a sampler's draws
+# through 5a order its next block of 5b draws. A stale hit (a new tensor at
+# a freed one's address) would change a launch's order, never a chain's
+# result.
+_MEASURED: list = [None, None]
+
+
+def _tuning_key(step, inv_mass, min_micro) -> tuple:
+    """The key of :data:`_MEASURED` for a launch on these tuning tensors."""
+    key = tuple((t.data_ptr(), t._version) for t in (step, inv_mass, min_micro))
+    return key + (step.shape[0],)
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _as_int32(seed) -> int:
@@ -477,6 +545,7 @@ class FusedTransition(_FusedMachine):
     """One transition per call; see :func:`make_fused_transition`."""
 
     name = "fused transition"
+    GROUP_WARPS = 2
 
     def __call__(self, seed, theta, rho, logp0, grad0, step, inv_mass, min_micro,
                  max_error):
@@ -506,6 +575,7 @@ class FusedSampleBlock(_FusedMachine):
     """``num_draws`` transitions per call; see :func:`make_fused_sample_block`."""
 
     name = "fused sample block"
+    GROUP_WARPS = 1
 
     def __init__(self, model, dim, max_depth, max_step_halvings, num_draws):
         super().__init__(model, dim, max_depth, max_step_halvings)
@@ -623,6 +693,7 @@ __all__ = [
     "MAX_DEPTH",
     "FusedSampleBlock",
     "FusedTransition",
+    "chain_schedule",
     "draw_uniform",
     "fused_sample_block_plain",
     "fused_transition_plain",
