@@ -26,10 +26,14 @@ with the fused model kernel, 4096 chains, float32:
 
 Each path's draws must be finite, and their pooled posterior mean and sd
 must agree with NumPy references (a Newton MAP, its Laplace sd, and the
-importance-reweighted Laplace mean). Kernels 3, 5a and 5b are also timed
-on their own paths, beside the bound of those launches: kernel 3 by
-relaunching the classic A/B's kernel launches on their recorded operands
-under ``torch.profiler``, 5a and 5b by CUDA events around each launch.
+importance-reweighted Laplace mean). Kernels 1, 3, 4, 5a and 5b are also
+timed on their own paths, beside the bound of those launches: kernels 1
+and 3 by relaunching every launch of the main path (1) and of the classic
+A/B (3) on its recorded operands under ``torch.profiler``, kernel 4 by
+relaunching every tenth launch of the fused route on a copy of its lane
+state, 5a and 5b by CUDA events around each launch. An empty kernel is
+timed as kernels 1 and 4 are (the launch floor both sit on), and kernel 4
+is traced once at each width (its chains' phases on the card's clock).
 
 Run from the root of a checkout:  python3 chip_smoke.py [--profile] [--ab]
 
@@ -42,8 +46,12 @@ route, launches on its path, error against its plain version, times and
 bound (the integrator's and the transition kernels' with their
 logistic-regression body; their three other bodies are checked and printed
 on earlier lines), the logistic-regression kernel's two ``torch.matmul``
-products (``matmul_ms``), and the time and bound of a launch on the path
-(``path_ms``, ``path_bound_ms``) for kernels 3, 5a and 5b.
+products (``matmul_ms``), the time and bound of a launch on the path
+(``path_ms``, ``path_bound_ms``) for kernels 1, 3, 4, 5a and 5b, the empty
+kernel's two times beside kernel 1 (``empty_queued_ms``,
+``empty_single_ms``), and beside kernel 4 its wrapper's host time
+(``host_ms``) and its time and bound at D = 101 (``ms_d101``,
+``bound_ms_d101``).
 """
 
 from __future__ import annotations
@@ -94,6 +102,9 @@ THREEFRY_OPS = 115
 # host has enqueued the timed launches before the card reaches them and
 # the events see device time, not the wrappers' host cost (~12 ms)
 LEAD_CYCLES = 20_000_000
+# the fused route's pass launches kept for their time on the path: every
+# PASS_EVERY-th (a copy of the lane state each, ~12 MB at D = 25)
+PASS_EVERY = 10
 
 
 def card_label() -> str:
@@ -174,6 +185,92 @@ def bound(nbytes: float, ops: float) -> tuple:
     over HBM's rate and the operations over the float32 rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_single(fn, reset, reps: int, lead: bool = True) -> tuple:
+    """(device ms, host ms) per call of ``fn``, one call at a time, each
+    after ``reset()`` and a sync: CUDA events around the call, behind a
+    short sleep with ``lead`` (the fused pass's measure)."""
+    total = host = 0.0
+    for i in range(reps + 2):
+        reset()
+        torch.cuda.synchronize()
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES // 20)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        stop.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            total += start.elapsed_time(stop)
+            host += (t1 - t0) * 1e3
+    return total / reps, host / reps
+
+
+def check_empty(card: str) -> dict:
+    """The launch floor: a kernel that does nothing, timed as the replay
+    (back-to-back launches behind a sleep, its 32 blocks of 128) and as
+    the fused pass (one launch between events, its 512 blocks of 256)."""
+    from walnuts_tpu_torch.ops import _cuda
+
+    lib = _cuda.library("replay")
+
+    def launch(blocks, threads):
+        stream = torch.cuda.current_stream().cuda_stream
+        _cuda.check(lib.wt_empty_kernel(blocks, threads, stream), "wt_empty_kernel")
+
+    queued = time_ms(lambda: launch(32, 128))
+    single, _ = timed_single(lambda: launch(CHAINS // 8, 256), lambda: None, 30)
+    print(f"[empty kernel] {queued:.4f} ms a launch back to back behind a sleep "
+          f"(32 x 128 threads, the replay's measure), {single:.4f} ms one launch "
+          f"between events ({CHAINS // 8} x 256, the fused pass's measure)  [{card}]")
+    return dict(empty_queued_ms=queued, empty_single_ms=single)
+
+
+def pass_trace_summary(trace: torch.Tensor, pend: torch.Tensor) -> dict:
+    """Where a fused-pass launch's time went, from the kernel's trace
+    (``ops.fused_pass.TRACE_COLS`` a chain): when the chains started and
+    ended on the card's clock, and when each mark was reached after the
+    chain's entry (SM cycles, in us at the clock the trace measured) over
+    the pending chains."""
+    from walnuts_tpu_torch.ops.fused_pass import TRACE_MARKS
+
+    t = trace.cpu().double()
+    pend = pend.cpu()
+    t0 = t[:, 0].min()
+    entry, leave = (t[:, 0] - t0) / 1e3, (t[:, 1] - t0) / 1e3  # us
+    clk = t[:, 3:3 + len(TRACE_MARKS)]
+    ns = t[:, 1] - t[:, 0]
+    cyc = clk[:, -1] - clk[:, 0]
+    ok = (ns > 0) & (cyc > 0)
+    ghz = float((cyc[ok] / ns[ok]).median()) if ok.any() else float("nan")
+    marks = {}
+    for k in range(1, len(TRACE_MARKS)):
+        d = (clk[pend, k] - clk[pend, 0]) / ghz / 1e3
+        if d.numel():
+            marks[TRACE_MARKS[k]] = (float(d.mean()), float(d.max()))
+    per_sm = torch.bincount(t[:, 2].long())
+    q = lambda x, f: float(torch.quantile(x, f))
+    return dict(
+        span_us=float(leave.max()), entry_p50_us=q(entry, 0.5),
+        entry_p90_us=q(entry, 0.9), entry_max_us=float(entry.max()),
+        chain_p50_us=q(leave - entry, 0.5), chain_max_us=float((leave - entry).max()),
+        sms=int((per_sm > 0).sum()), chains_per_sm_max=int(per_sm.max()),
+        ghz=ghz, marks_us=marks)
+
+
+def format_trace(tr: dict) -> str:
+    ms = ", ".join(f"{k} {m:.3f} (max {x:.3f})" for k, (m, x) in tr["marks_us"].items())
+    return (f"chains start from 0 to {tr['entry_max_us']:.3f} us (median "
+            f"{tr['entry_p50_us']:.3f}, p90 {tr['entry_p90_us']:.3f}), the last ends "
+            f"at {tr['span_us']:.3f} us; a chain takes {tr['chain_p50_us']:.3f} us "
+            f"(median), {tr['chain_max_us']:.3f} at most; {tr['sms']} SMs, at most "
+            f"{tr['chains_per_sm_max']} chains on one; clock {tr['ghz']:.3f} GHz; "
+            f"each mark of a pending chain after its entry, mean (max) us: {ms}")
 
 
 def check_replay(card: str) -> dict:
@@ -342,45 +439,37 @@ def check_fused_pass(card: str, dim: int) -> dict:
         for t in work[1]:
             t.zero_()
 
-    def timed(fn, reps, lead):
-        """(device ms, host ms) per call, each call on the pristine state."""
-        total = host = 0.0
-        for i in range(reps + 2):
-            reset()
-            torch.cuda.synchronize()
-            if lead:
-                torch.cuda._sleep(LEAD_CYCLES // 20)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            fn()
-            t1 = time.perf_counter()
-            stop.record()
-            torch.cuda.synchronize()
-            if i >= 2:
-                total += start.elapsed_time(stop)
-                host += (t1 - t0) * 1e3
-        return total / reps, host / reps
-
-    ms, host_ms = timed(
-        lambda: fp.fused_pass(st_k, *params, cap, R, max_depth, out_k), 30, True)
-    plain_ms, _ = timed(lambda: fp.fused_pass_plain(st_k, *params, cap, R,
-                                                    max_depth, out_k), 10, False)
+    ms, host_ms = timed_single(
+        lambda: fp.fused_pass(st_k, *params, cap, R, max_depth, out_k), reset, 30)
+    plain_ms, _ = timed_single(lambda: fp.fused_pass_plain(st_k, *params, cap, R,
+                                                           max_depth, out_k),
+                               reset, 10, lead=False)
+    dev_ms = profiled_ms(lambda: (reset(), fp.fused_pass(st_k, *params, cap, R,
+                                                         max_depth, out_k)),
+                         "fused_pass_kernel", reps=20)
+    reset()
+    trace = torch.zeros((CHAINS, fp.TRACE_COLS), dtype=torch.int64, device=DEVICE)
+    fp.fused_pass(st_k, *params, cap, R, max_depth, out_k, trace=trace)
+    torch.cuda.synchronize()
+    tr = pass_trace_summary(trace, (pristine.draws_done < cap) & pristine.leaf_done)
     nbytes = _pass_bytes(pristine, st_p, out_p, dim, max_depth - 1, cap)
     bound_ms, bound_by = bound(nbytes, 0.0)
     pend = int(((pristine.draws_done < cap) & pristine.leaf_done).sum())
     print(f"[fused pass] D={dim}: kernel against plain at C={CHAINS} ({pend} "
           f"pending lanes): integers, flags and keys equal on every lane, "
           f"largest float difference {float_err:.3e}; kernel {ms:.4f} ms "
-          f"(the wrapper's host cost {host_ms:.4f} ms a call), plain "
-          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us "
-          f"({nbytes / 1e6:.3f} MB, {bound_by}), {bound_ms / ms:.3f} of it  [{card}]")
+          f"(profiler device time "
+          f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms; the wrapper's "
+          f"host cost {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.3f} MB, {bound_by}), "
+          f"{bound_ms / ms:.3f} of it  [{card}]")
+    print(f"[fused pass] D={dim}: a traced launch: {format_trace(tr)}  [{card}]")
     return dict(name="fused_pass", route="cuda",
                 source="walnuts_tpu_torch/csrc/fused_pass.cu",
                 replaces="walnuts_tpu/ops/fused_pass.py:172",
                 max_abs_err=float_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                host_ms=host_ms, trace=tr)
 
 
 # per body of the integrator: the model's factory, the scales of the
@@ -671,19 +760,27 @@ def run_main_path(card: str, ref) -> dict:
     from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
 
     logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    from walnuts_tpu_torch.ops import prng
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the replay's operands of every launch, for path_replay_ms
+    replay = prng.replay_split_chain
+    recording = prng.replay_split_chain = _Recording(replay)
     _reset_counts()
     t0 = time.perf_counter()
-    out, info = wtt.walnuts(
-        logp_grad, fused=True, num_params=dim, num_chains=CHAINS,
-        dtype=torch.float32, seed=SEED, device=DEVICE,
-        min_warmup_iter=MAIN_ITERS, max_warmup_iter=MAIN_ITERS,
-        min_sampling_iter=MAIN_ITERS, max_sampling_iter=MAIN_ITERS,
-        block_size=50, return_info=True, max_step_halvings=HALVINGS,
-    )
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    try:
+        out, info = wtt.walnuts(
+            logp_grad, fused=True, num_params=dim, num_chains=CHAINS,
+            dtype=torch.float32, seed=SEED, device=DEVICE,
+            min_warmup_iter=MAIN_ITERS, max_warmup_iter=MAIN_ITERS,
+            min_sampling_iter=MAIN_ITERS, max_sampling_iter=MAIN_ITERS,
+            block_size=50, return_info=True, max_step_halvings=HALVINGS,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prng.replay_split_chain = replay
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     for name in ("replay_split_chain", "logreg_value_grad"):
@@ -720,7 +817,105 @@ def run_main_path(card: str, ref) -> dict:
               f"per block)  [{card}]")
     print(f"[main path] peak device memory {peak / 2**20:.1f} MiB  [{card}]")
     print(f"[main path] launches on the main path: {json.dumps(launches)}  [{card}]")
-    return launches
+    return launches, path_replay_ms(card, recording.calls)
+
+
+def path_replay_ms(card: str, calls) -> dict:
+    """Kernel 1 at the main path's own operands: every launch relaunched
+    under ``torch.profiler`` (device time of the kernel alone; CUDA events
+    over the relaunches where the profiler sees none), and the bound of
+    those launches."""
+    from walnuts_tpu_torch.ops import prng
+
+    def relaunch():
+        for a in calls:
+            prng.replay_split_chain(*a)
+
+    ms = profiled_ms(relaunch, "replay_kernel", reps=1)
+    how = "torch.profiler"
+    if ms is None:
+        ms = time_ms(relaunch, reps=1, warmup=1) / len(calls)
+        how = "CUDA events"
+    hashes = sum(int(a[2].sum()) + int(((a[3] >= 1) & (a[3] <= a[2])).sum())
+                 for a in calls)
+    bound_ms, bound_by = bound(40.0 * CHAINS * len(calls), THREEFRY_OPS * hashes)
+    bound_ms /= len(calls)
+    longest = max(int(a[2].max()) for a in calls)
+    print(f"[main path] kernel 1 on the main path: its {len(calls)} launches "
+          f"relaunched on their own operands (n_ends up to {longest}, "
+          f"{hashes / len(calls) / CHAINS:.3f} hashes a lane and launch): "
+          f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
+          f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
+    return dict(path_ms=ms, path_bound_ms=bound_ms)
+
+
+def _pass_copy(s):
+    """The lane state ``s`` with every field the fused pass reads or
+    writes in storage of its own."""
+    from walnuts_tpu_torch.ops import fused_pass as fp
+
+    names = [n for n in fp.RW_FIELDS + fp.ROW_RO[:3] + fp.F_RO[:2]
+             if n != "n_depth_exhausted"]
+    return s._replace(
+        fails=s.fails._replace(n_depth_exhausted=s.fails.n_depth_exhausted.clone()),
+        **{n: getattr(s, n).clone() for n in names})
+
+
+class _PassRecording:
+    """Stands in for ``core.batched.fused_pass``: keeps a copy of the lane
+    state before every ``every``-th call, with the call's other operands."""
+
+    def __init__(self, fn, every: int):
+        self.fn, self.every, self.n, self.calls = fn, every, 0, []
+
+    def __call__(self, s, *args, **kwargs):
+        if self.n % self.every == 0:
+            self.calls.append((_pass_copy(s), args))
+        self.n += 1
+        return self.fn(s, *args, **kwargs)
+
+
+def path_pass_ms(card: str, calls) -> dict:
+    """Kernel 4 at the fused route's own lane states: each recorded launch
+    relaunched on a copy of its state under ``torch.profiler`` (device
+    time of the kernel alone), and the bound of those launches."""
+    from walnuts_tpu_torch.ops import fused_pass as fp
+
+    spare = {}
+
+    def out_like(out):
+        key = tuple(t.shape for t in out)
+        if key not in spare:
+            spare[key] = tuple(torch.zeros_like(t) for t in out)
+        return spare[key]
+
+    def relaunch():
+        for st, (step, inv_mass, min_micro, cap, R, max_depth, out) in calls:
+            fp.fused_pass(_pass_copy(st), step, inv_mass, min_micro, cap, R,
+                          max_depth, out_like(out))
+
+    ms = profiled_ms(relaunch, "fused_pass_kernel", reps=1)
+    how = "torch.profiler"
+    if ms is None:
+        ms = time_ms(relaunch, reps=1, warmup=1) / len(calls)
+        how = "CUDA events, copies included"
+    nbytes = pend = 0.0
+    ends = 0
+    for st, (step, inv_mass, min_micro, cap, R, max_depth, out) in calls:
+        after = _pass_copy(st)
+        o = out_like(out)
+        fp.fused_pass(after, step, inv_mass, min_micro, cap, R, max_depth, o)
+        nbytes += _pass_bytes(st, after, o, st.run_sel.shape[1], max(max_depth - 1, 1),
+                              cap)
+        pend += float(((st.draws_done < cap) & st.leaf_done).float().mean())
+        ends = max(ends, int(st.n_ends.max()))
+    bound_ms, bound_by = bound(nbytes / len(calls), 0.0)
+    print(f"[fused route] kernel 4 on the fused route: {len(calls)} of its launches "
+          f"(every {PASS_EVERY}th) relaunched on copies of their lane states "
+          f"(n_ends up to {ends}, {pend / len(calls):.3f} of the lanes pending): "
+          f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
+          f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
+    return dict(path_ms=ms, path_bound_ms=bound_ms)
 
 
 def _start_state(logp_grad, dim: int, seed: int, wcfg, scfg):
@@ -762,7 +957,8 @@ def run_fused_route(card: str, ref, warmup: int = 50,
                     order=("unfused", "fused")) -> tuple:
     """Warmup once, then sampling with the unfused and the fused tier-2
     pass from the same warmed state, in ``order``. Returns the fused run's
-    launches and the warmed state."""
+    launches, the warmed state and kernel 4's time on the route
+    (:func:`path_pass_ms`)."""
     from walnuts_tpu_torch.config import SamplingConfig
     from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
     from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
@@ -777,14 +973,25 @@ def run_fused_route(card: str, ref, warmup: int = 50,
           f"{time.perf_counter() - t0:.3f} s  [{card}]")
     params, ss = freeze_params(ws), init_sample_state(ws)
 
+    from walnuts_tpu_torch.core import batched
+
     routes = {}
+    recorded = None
     for name in order:
         torch.cuda.synchronize()
+        # the first fused run keeps every PASS_EVERY-th lane state for
+        # path_pass_ms
+        pass_fn = batched.fused_pass
+        if name == "fused" and recorded is None:
+            batched.fused_pass = recorded = _PassRecording(pass_fn, PASS_EVERY)
         _reset_counts()
         t0 = time.perf_counter()
-        _, d, _, info = run_sampling(logp_grad, ss, params, scfg,
-                                     pallas_pass=name == "fused")
-        torch.cuda.synchronize()
+        try:
+            _, d, _, info = run_sampling(logp_grad, ss, params, scfg,
+                                         pallas_pass=name == "fused")
+            torch.cuda.synchronize()
+        finally:
+            batched.fused_pass = pass_fn
         wall = time.perf_counter() - t0
         launches = _counts()
         routes[name] = (d.cpu().numpy(), launches)
@@ -805,7 +1012,7 @@ def run_fused_route(card: str, ref, warmup: int = 50,
           f"{same.mean():.4f} of {same.size}; largest difference "
           f"{np.abs(d_u - d_f).max():.3e} (reported only)  [{card}]")
     check_posterior(d_f, "fused route", card, ref)
-    return launches, ws
+    return launches, ws, path_pass_ms(card, recorded.calls)
 
 
 def run_classic_path(card: str, ref) -> int:
@@ -893,10 +1100,21 @@ def count_attempt_ops(card: str, logp_grad, fused, params, ss) -> None:
 
 
 class _Recording:
-    """An attempt integrator that keeps a copy of every call's operands."""
+    """Stands in for a kernel's wrapper (an attempt integrator, the
+    replay) and keeps a copy of every call's operands. Its ``launches``
+    is the wrapper's: a wrapper that counts through its module's name
+    for itself counts on."""
 
     def __init__(self, integrator):
         self.integrator, self.calls = integrator, []
+
+    @property
+    def launches(self):
+        return self.integrator.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.integrator.launches = n
 
     def __call__(self, *args):
         self.calls.append(tuple(a.clone() for a in args))
@@ -1256,8 +1474,11 @@ def main() -> None:
         for kernel, regs, spill in ptxas_report(b["log"]):
             print(f"[build]   {kernel}: {regs} registers, {spill} bytes spill stores")
 
+    empty = check_empty(card)
     kernels = [check_replay(card), check_logreg(card), check_fused_pass(card, DIM)]
-    check_fused_pass(card, 101)
+    kernels[0].update(empty)
+    wide = check_fused_pass(card, 101)
+    kernels[2].update(ms_d101=wide["ms"], bound_ms_d101=wide["bound_ms"])
     for body in ("std_normal", "ill_conditioned_normal", "funnel"):
         check_integrator(card, body)
     kernels.append(check_integrator(card, "logistic_regression"))
@@ -1270,14 +1491,15 @@ def main() -> None:
     print(f"[transition] 5a / 5b ({BLOCK_CHECK_DRAWS} draws) at C={CHAINS}, each "
           f"body's time and share of its bound: {json.dumps(shares)}  [{card}]")
     ref = laplace(*logistic_regression_data(ROWS, DIM))
-    launches = run_main_path(card, ref)
+    launches, path = run_main_path(card, ref)
+    path = {"replay_split_chain": path}
     order = ("unfused", "fused", "fused", "unfused") if args.ab else ("unfused", "fused")
-    route_launches, warmed = run_fused_route(card, ref, order=order)
+    route_launches, warmed, path["fused_pass"] = run_fused_route(card, ref, order=order)
     launches["fused_pass"] = route_launches["fused_pass"]
     launches["integrator"] = run_classic_path(card, ref)
     classic = run_classic_ab(card, warmed)
-    path_launches, path = run_transition_path(card, ref, warmed)
-    path["integrator"] = classic[2]
+    path_launches, path_t = run_transition_path(card, ref, warmed)
+    path.update(path_t, integrator=classic[2])
     launches.update({k: path_launches[k]
                      for k in ("fused_transition", "fused_sample_block")})
     run_transition_ab(card, warmed, classic)
@@ -1293,7 +1515,8 @@ def main() -> None:
     # logistic-regression chain is split over (5a, 5b)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "matmul_ms",
-            "path_ms", "path_bound_ms", "group_warps")
+            "path_ms", "path_bound_ms", "group_warps", "empty_queued_ms",
+            "empty_single_ms", "host_ms", "ms_d101", "bound_ms_d101")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -252,3 +252,63 @@ def test_fused_pass_refuses_bad_operands():
         else:
             with pytest.raises(ValueError, match="share memory"):
                 fp.fused_pass(st0, step, im, mm, 3, 4, 3, out())
+
+
+def test_fused_pass_args_match_the_kernel_source():
+    """FusedPassArgs' pointers are the kernel's enum Ptr, name for name and
+    in order, and the trace's columns and marks are the kernel's (the card
+    checks the struct's size; this checks the order without one)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fp.__file__).parents[1] / "csrc" / "fused_pass.cu").read_text()
+    enum = lambda name: re.findall(r"\bk(\w+)", re.sub(
+        r"//[^\n]*", "", re.search(r"enum %s : int \{(.*?)\};" % name, src, re.S).group(1)))
+    snake = lambda n: re.sub(r"(?<!^)(?=[A-Z])", "_", n).lower()
+    ptrs = enum("Ptr")
+    assert ptrs[-1] == "Pointers"
+    assert tuple(snake(n) for n in ptrs[:-1]) == fp._POINTERS
+    assert [f[0] for f in fp.FusedPassArgs._fields_] == list(fp._POINTERS) + [
+        "trace"] + list(fp._INTS)
+    marks = enum("Mark")
+    assert marks[-1] == "Marks" and len(marks) - 1 == len(fp.TRACE_MARKS)
+    cols = int(re.search(r"kTraceCols = (\d+);", src).group(1))
+    assert cols == fp.TRACE_COLS >= 3 + len(fp.TRACE_MARKS) + 1
+
+
+@pytest.mark.parametrize("alias,refused", [
+    (("acc_th_fw", "acc_th_bk"), True),      # two read-write rows
+    (("fwd_th", "cur_th"), True),            # read-only over read-write
+    (("fwd_th", "fwd_rho"), False),          # two read-only rows may share
+    (("fwd_logp_pos", "step"), False),       # two read-only scalars
+    (("step", "dt"), True),                  # read-only over read-write scalar
+])
+def test_fused_pass_overlap_check(alias, refused):
+    """The address scan refuses exactly the overlaps with a read-write side,
+    also where a read-only span lies across the first one's end."""
+    s, p = fp.synthetic_pass_inputs(8, 5, 3, 4, seed=2)
+    st = clean = convert.lane_state_from_fields(s)
+    step, im, mm = (torch.from_numpy(np.array(p[n])) for n in ("step", "inv_mass", "min_micro"))
+    out = (torch.zeros((4, 8, 5), dtype=torch.float64),
+           torch.zeros((4, 8), dtype=torch.float64), torch.zeros((4, 8), dtype=torch.int32))
+    a, b = alias
+    params = {"step": step, "inv_mass": im, "min_micro": mm}
+    src = params[b] if b in params else getattr(st, b)
+    if a in params:
+        params[a] = src
+    else:
+        st = st._replace(**{a: src})
+    ops = fp._operands(st, params["step"], params["inv_mass"], params["min_micro"], out)
+    if refused:
+        with pytest.raises(ValueError, match="share memory"):
+            fp._check(ops, 3, 4)
+    else:
+        fp._check(ops, 3, 4)
+    # a read-only span across two others: the scan still finds the alias
+    wide = torch.zeros(3 * 8 * 5, dtype=torch.float64)
+    st2 = clean._replace(fwd_th=wide[:40].view(8, 5), fwd_rho=wide[40:80].view(8, 5),
+                      fwd_grad=wide[80:120].view(8, 5))
+    fp._check(fp._operands(st2, step, im, mm, out), 3, 4)
+    with pytest.raises(ValueError, match="share memory"):
+        fp._check(fp._operands(st2._replace(cur_th=wide[20:60].view(8, 5)),
+                               step, im, mm, out), 3, 4)

@@ -13,7 +13,12 @@ on every lane; rows to a few ulp (the restart's normals run the same
 polynomial, rounded step by step on both sides); per-lane floats to rtol
 1e-5 / atol 1e-4 in float32 (1e-10 in float64), because the momentum
 energy of a restart is a warp sum in the kernel and PyTorch's reduction in
-the plain version. The fused integrator is held to ``integrate_plain`` on
+the plain version. Both kernels are also run on states built to reach
+every case of their control flow (every latch round of a warp; every
+cascade depth, a sub-U-turn at each slot, all lanes pending or none, at
+widths below, at and above a chunk of 32 features and at chain counts
+below and above a block), held to the smoke's criterion (integers, flags
+and keys equal, floats within 1e-3), and must repeat bit for bit. The fused integrator is held to ``integrate_plain`` on
 the card: zero-step lanes bitwise; the simple bodies repeat the plain
 version's arithmetic product by product (``-fmad=false``) and differ by the
 order of their feature sums only (float32 rtol 1e-4 / atol 1e-4, float64
@@ -238,6 +243,139 @@ def test_fused_pass_kernel_vs_plain(cuda, c, d, dtype):
                                **lane_tol)
     if c > 1:
         assert (out_k[2].cpu().numpy() > 0).any()  # some lanes banked
+
+
+def _replay_case(c, mode, seed):
+    """Replay operands: ``every_round``: n_ends 12 and lane j latching at
+    round j mod 13, so the lanes of a warp latch at every round (and some
+    never); ``zero``: n_ends 0 everywhere; ``mixed``: n_ends in [0, 12],
+    the latch anywhere up to one past it."""
+    rng = np.random.default_rng(seed)
+    kd = rng.integers(0, 2**32, size=(c, 2), dtype=np.uint64).astype(np.uint32)
+    ku = rng.integers(0, 2**32, size=(c, 2), dtype=np.uint64).astype(np.uint32)
+    if mode == "every_round":
+        n_ends = np.full(c, 12, np.int32)
+        at = (np.arange(c) % 13).astype(np.int32)
+    elif mode == "zero":
+        n_ends = np.zeros(c, np.int32)
+        at = rng.integers(0, 3, size=c).astype(np.int32)
+    else:
+        n_ends = rng.integers(0, 13, size=c).astype(np.int32)
+        at = rng.integers(0, n_ends + 2).astype(np.int32)
+    return (key_data_torch(kd), key_data_torch(ku), torch.from_numpy(n_ends),
+            torch.from_numpy(at))
+
+
+@pytest.mark.parametrize("c", [1, 31, 33, 4096, 4097])
+@pytest.mark.parametrize("mode", ["every_round", "zero", "mixed"])
+def test_replay_kernel_bitwise_at_every_latch_round(cuda, mode, c):
+    args = _replay_case(c, mode, 7 * c)
+    want = prng.replay_split_chain_plain(*args)
+    got = prng.replay_split_chain(*(a.to(cuda) for a in args))
+    again = prng.replay_split_chain(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    for g, h, w in zip(got, again, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+        assert torch.equal(g, h)
+
+
+def pass_case_fields(c, d, seed, case, max_depth=5, r=6):
+    """``synthetic_pass_inputs`` made into one of the kernel checks' cases:
+
+    - ``every_index``: every lane pending at the deepest doubling with its
+      leaf at index c mod 2^(max_depth - 1), so every merge count, every
+      cascade depth and the subtree's last leaf occur; straight orbits, so
+      the U-turn checks pass;
+    - ``fail_each_slot``: every lane on the last leaf (a merge over every
+      stack slot), straight orbits, and lane c's slot c mod (n_slots + 1)
+      turned back: a sub-U-turn at each slot (none on the last group);
+    - ``all_pending`` / ``none_pending``: the synthetic state with every
+      lane's leaf latched, or none.
+
+    Active lanes have draws_done below ``r``, so completing lanes restart
+    or end the block."""
+    fields, p = fp.synthetic_pass_inputs(c, d, max_depth, r, seed)
+    rng = np.random.default_rng(seed + 1)
+    n_slots = max(max_depth - 1, 1)
+    if case in ("every_index", "fail_each_slot"):
+        n_leaves = 1 << (max_depth - 1)
+        fields["depth"][:] = max_depth
+        fields["n_leaves"][:] = n_leaves
+        fields["leaf_idx"][:] = (np.arange(c) % n_leaves if case == "every_index"
+                                 else n_leaves - 1)
+        fields["leaf_done"][:] = True
+        fields["leaf_ok"][:] = True
+        fields["draws_done"][:] = rng.integers(0, r, c)
+        fields["run_logw"] = np.where(fields["leaf_idx"] == 0, -np.inf,
+                                      -10.0 + rng.standard_normal(c))
+        im = p["inv_mass"]
+        sgn = np.where(fields["forward"], 1.0, -1.0)[:, None]
+        v = rng.standard_normal((c, d))
+        fth = fields["fwd_th"]
+        fields["fwd_rho"] = v + 0.1 * rng.standard_normal((c, d))
+
+        def older():
+            a = 0.5 + rng.random((c, 1))
+            return fth - sgn * a * v / im, v + 0.1 * rng.standard_normal((c, d))
+
+        fields["acc_th_bk"], fields["acc_rho_bk"] = older()
+        fields["acc_th_fw"], fields["acc_rho_fw"] = older()
+        stack = fields["stack_e"]
+        for i in range(n_slots):
+            stack[:, i, 0], stack[:, i, 1] = older()
+        if case == "fail_each_slot":
+            turned = np.arange(c) % (n_slots + 1)
+            for i in range(n_slots):
+                stack[turned == i, i, 1] *= -1.0
+    elif case == "all_pending":
+        fields["leaf_done"][:] = True
+        fields["draws_done"][:] = rng.integers(0, r, c)
+    else:
+        fields["leaf_done"][:] = False
+    return fields, p
+
+
+def _pass_state(fields, p, c, d, r, dtype, device):
+    st = lane_state_from_fields(fields, dtype, device)
+    params = tuple(torch.tensor(p[n], dtype=t, device=device) for n, t in
+                   (("step", dtype), ("inv_mass", dtype), ("min_micro", torch.int32)))
+    out = (torch.zeros((r, c, d), dtype=dtype, device=device),
+           torch.zeros((r, c), dtype=dtype, device=device),
+           torch.zeros((r, c), dtype=torch.int32, device=device))
+    return st, params, out
+
+
+@pytest.mark.parametrize("case", ["every_index", "fail_each_slot", "all_pending",
+                                  "none_pending"])
+@pytest.mark.parametrize("c", [1, 33, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("d", [1, 25, 32, 33, 101, 1003])
+def test_fused_pass_kernel_cases_vs_plain(cuda, d, dtype, c, case):
+    """The kernel against plain on every lane (integers, flags and keys
+    equal, floats within 1e-3: chip_smoke.py's criterion), and two launches
+    from the same state bitwise equal."""
+    max_depth, r = 5, 6
+    fields, p = pass_case_fields(c, d, 11 * c + d, case, max_depth, r)
+    runs = []
+    for _ in range(2):
+        st, params, out = _pass_state(fields, p, c, d, r, dtype, cuda)
+        fp.fused_pass(st, *params, r, r, max_depth, out)
+        runs.append([fp.lane_field(st, n) for n in fp.RW_FIELDS] + list(out))
+    st_p, params, out_p = _pass_state(fields, p, c, d, r, dtype, cuda)
+    fp.fused_pass_plain(st_p, *params, r, r, max_depth, out_p)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    want = [fp.lane_field(st_p, n) for n in fp.RW_FIELDS] + list(out_p)
+    for name, k, w in zip(fp.RW_FIELDS + fp.BANK, runs[0], want):
+        if k.is_floating_point():
+            assert torch.equal(torch.isfinite(k), torch.isfinite(w)), name
+            both = torch.isfinite(k)
+            if both.any():
+                assert float((k - w)[both].abs().max()) <= 1e-3, name
+        else:
+            assert torch.equal(k, w), name
+    if case == "none_pending":  # only the replay moved
+        assert torch.equal(out_p[2], torch.zeros_like(out_p[2]))
 
 
 def test_fused_pass_kernel_refuses_bad_input(cuda):

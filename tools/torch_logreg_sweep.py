@@ -1,4 +1,4 @@
-"""Time launch geometries of the port's logistic-regression kernels on a card.
+"""Time launch geometries of the port's kernels on a card.
 
 Kernel 2 (``walnuts_tpu_torch/csrc/logreg.cu``) and the logistic-regression
 body of kernel 3 (``csrc/integrator.cu``) and of kernels 5a and 5b
@@ -22,13 +22,23 @@ and prints ptxas' registers and spill stores for it:
   at 8 warps also with the chains in index order and in the order of a
   cost proxy (``min_micro`` descending, then ``step`` ascending), each
   against the first geometry's chains, with where a 5b launch's time went
-  (the kernel's per-chain trace).
+  (the kernel's per-chain trace);
+- ``pass``: the fused tier-2 pass (kernel 4, ``csrc/fused_pass.cu``) at each
+  ``pass_tile`` on ``chip_smoke.py``'s synthetic state at D = 25 and 101,
+  each with a traced launch (where its chains' time went), and the replay
+  (kernel 1, ``csrc/replay.cu``) beside an empty kernel and the SM cycles
+  of a threefry hash and of a replay round; with ``--parent DIR`` (a tree
+  holding another ``walnuts_tpu_torch/``, e.g. the parent commit's, from
+  ``git archive``) also that tree's kernels 4 and 1, built from its sources:
+  their outputs compared with these bit for bit, their times and the fused
+  pass wrappers' host times taken in turns.
 
 The geometry the sources launch is marked ``*``. Needs ``nvcc`` and a CUDA
 card.
 
-Run from the root of a checkout:  python3 tools/torch_logreg_sweep.py [part ...]
-with parts among ``logreg``, ``integrator``, ``transition`` (default: all).
+Run from the root of a checkout:
+``python3 tools/torch_logreg_sweep.py [part ...] [--parent DIR]`` with parts
+among ``logreg``, ``integrator``, ``transition``, ``pass`` (default: all).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import ctypes
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Callable
 
@@ -454,6 +465,276 @@ def sweep_transition(card: str) -> None:
             _cuda._LIBRARIES["fused_transition"] = saved
 
 
+# chains per CUDA block of the fused pass; the first is the default
+PASS_TILES = (8, 4, 16, 32)
+# a chain of dependent hashes in one thread, for the cycles a hash takes
+_PROBE = """#include "{src}"
+__global__ void probe_kernel(uint32_t k0, uint32_t k1, int n, int at,
+                             long long* cycles, uint32_t* sink) {{
+  uint32_t a0 = k0, a1 = k1, u0 = 0u, u1 = 0u;
+  long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long t0 = clock64();
+  if (at < 0) {{
+    for (int j = 0; j < n; ++j) wt::threefry2x32(a0, a1, 0u, 0u, a0, a1);
+  }} else {{
+{replay}
+  }}
+  const long long t1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  cycles[0] = t1 - t0;
+  cycles[1] = g1 - g0;
+  sink[0] = a0 ^ a1 ^ u0 ^ u1;
+}}
+extern "C" int probe(uint32_t k0, uint32_t k1, int n, int at, void* cycles,
+                     void* sink, void* stream) {{
+  probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      k0, k1, n, at, static_cast<long long*>(cycles), static_cast<uint32_t*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}}
+"""
+# the replay's round as the probe runs it: the parent's latch inside the
+# loop, or the shared replay_chain where threefry.cuh has it
+_PROBE_LATCH = """    for (int j = 0; j < n; ++j) {
+      if (at == j + 1) wt::threefry2x32(a0, a1, 0u, 1u, u0, u1);
+      wt::threefry2x32(a0, a1, 0u, 0u, a0, a1);
+    }"""
+_PROBE_CHAIN = "    wt::replay_chain(a0, a1, u0, u1, n, at);"
+
+
+def resident_warps(regs: int, warps: int, smem: int = 0) -> int:
+    """Warps of ``warps``-warp blocks resident on one H100 SM at ``regs``
+    registers a thread and ``smem`` bytes of shared memory a block (64
+    warps, 32 blocks, 65536 registers allocated 256 a warp, 228 KB of
+    shared memory with 1 KB reserved a block)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(32, 64 // warps, 65536 // per_warp // warps)
+    if smem:
+        blocks = min(blocks, 233472 // (-(-smem // 128) * 128 + 1024))
+    return blocks * warps
+
+
+def probe_cycles(card: str) -> dict:
+    """SM cycles of one threefry2x32 in a chain of dependent hashes, and of
+    a replay round (the main split and subkey 1's latch)."""
+    src = _cuda._CSRC / "threefry.cuh"
+    chain = "replay_chain" in src.read_text()
+    out_dir = _cuda.BUILD_DIR / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "sweep_threefry.cu"
+    cu.write_text(_PROBE.format(src=src, replay=_PROBE_CHAIN if chain else _PROBE_LATCH))
+    lib_path = out_dir / "libsweep_threefry.so"
+    flags = [f for f in _cuda.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    proc = subprocess.run([_cuda._nvcc(), *flags, "-o", str(lib_path), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stdout}\n{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    cycles = torch.zeros(2, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n, at):
+        best = None
+        for _ in range(5):
+            err = lib.probe(ctypes.c_uint32(0x12345678), ctypes.c_uint32(0x9abcdef0),
+                            n, at, ctypes.c_void_p(cycles.data_ptr()),
+                            ctypes.c_void_p(sink.data_ptr()), ctypes.c_void_p(stream))
+            if err:
+                raise RuntimeError(f"probe: cudaError_t {err}")
+            torch.cuda.synchronize()
+            best = int(cycles[0]) if best is None else min(best, int(cycles[0]))
+        return best
+
+    how = ("replay_chain: both hashes, then a select" if chain
+           else "the latch inside the loop")
+    hash_c = (run(1012, -1) - run(12, -1)) / 1000
+    round_c = (run(1012, 6) - run(12, 6)) / 1000
+    run(200_000, -1)
+    ghz = float(cycles[0]) / float(cycles[1])
+    print(f"[sweep] threefry2x32 in a chain of dependent hashes: {hash_c:.1f} "
+          f"cycles a hash; a replay round ({how}"
+          f"): {round_c:.1f} cycles, the round that latches included; 12 rounds "
+          f"{run(12, 6)} cycles; the SM clock {ghz:.3f} GHz under a long chain  "
+          f"[{card}]", flush=True)
+    return dict(hash_cycles=hash_c, round_cycles=round_c, ghz=ghz)
+
+
+def _load_parent(parent: Path):
+    """The parent tree's fused-pass module and its kernel libraries, built
+    from its sources: ``(module, {"fused_pass": lib, "replay": lib})``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_fused_pass", parent / "walnuts_tpu_torch" / "ops" / "fused_pass.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    libs = {}
+    out_dir = _cuda.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in ("fused_pass", "replay"):
+        src = parent / "walnuts_tpu_torch" / "csrc" / f"{name}.cu"
+        out = out_dir / f"lib{name}.so"
+        flags = _cuda.NVCC_FLAGS + _cuda._EXTRA_FLAGS.get(name, ())
+        proc = subprocess.run([_cuda._nvcc(), *flags, "-o", str(out), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in _cuda._SIGNATURES[name].items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+        for kernel, regs, spill in chip_smoke.ptxas_report(proc.stderr):
+            print(f"[sweep] parent {name}: {kernel}: {regs} registers, {spill} bytes "
+                  f"spill stores", flush=True)
+    return mod, libs
+
+
+def _pass_outputs(st, out):
+    from walnuts_tpu_torch.ops import fused_pass as fp
+
+    return [fp.lane_field(st, n) for n in fp.RW_FIELDS] + list(out)
+
+
+def sweep_pass(card: str, parent: Path | None) -> None:
+    """Kernel 4 at each pass_tile on the smoke's synthetic state (D = 25
+    and 101) with a traced launch, kernel 1 beside the empty kernel and the
+    hash's cycles, registers and resident warps; with ``parent``, the
+    parent tree's kernels against these, in turns, outputs compared."""
+    from walnuts_tpu_torch.ops import fused_pass as fp
+
+    for name in ("fused_pass", "replay"):
+        _cuda.library(name)
+        for kernel, regs, spill in chip_smoke.ptxas_report(_cuda.BUILD_INFO[name]["log"]):
+            if name == "replay":
+                warps = f"{resident_warps(regs, 4)} at 4 warps a block"
+            else:  # the smoke's D = 25, n_slots 4: the block's control
+                # columns and 25 staged rows of 32 features a warp
+                size = 8 if "double" in kernel else 4
+                ctl = -(-(12 * 32 * size + 26 * 32 * 4) // 16) * 16
+                warps = ", ".join(
+                    f"{resident_warps(regs, w, ctl + w * 25 * 32 * size)} at {w}"
+                    for w in PASS_TILES)
+            print(f"[sweep] {name}: {kernel}: {regs} registers, {spill} bytes spill "
+                  f"stores; warps resident an SM (by registers and shared memory) "
+                  f"at warps a block: {warps}", flush=True)
+    probe = probe_cycles(card)
+    old = _load_parent(parent) if parent else None
+
+    # kernel 1 beside the empty kernel, on the smoke's replay input
+    rng = np.random.default_rng(chip_smoke.SEED)
+    kd = rng.integers(0, 2**32, size=(CHAINS, 2), dtype=np.uint64).astype(np.uint32)
+    ku = rng.integers(0, 2**32, size=(CHAINS, 2), dtype=np.uint64).astype(np.uint32)
+    n_ends = rng.integers(0, 13, size=CHAINS).astype(np.int32)
+    at = (rng.random(CHAINS) * (n_ends + 1)).astype(np.int32)
+    from walnuts_tpu_torch.convert import key_data_torch
+
+    args = [key_data_torch(kd, "cuda"), key_data_torch(ku, "cuda"),
+            torch.from_numpy(n_ends).cuda(), torch.from_numpy(at).cuda()]
+    rlib = _cuda.library("replay")
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = lambda: rlib.wt_empty_kernel(32, 128, ctypes.c_void_p(stream))
+    runs = [("kernel 1", lambda: prng.replay_split_chain(*args)), ("empty", empty)]
+    if old:
+        k_out, u_out = torch.empty_like(args[0]), torch.empty_like(args[1])
+
+        def parent_replay():
+            err = old[1]["replay"].wt_replay_split_chain(
+                *(ctypes.c_void_p(t.data_ptr()) for t in args + [k_out, u_out]),
+                CHAINS, ctypes.c_void_p(stream))
+            if err:
+                raise RuntimeError(f"parent replay: cudaError_t {err}")
+
+        parent_replay()
+        got = prng.replay_split_chain(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], k_out) and torch.equal(got[1], u_out)
+        print(f"[sweep] kernel 1 and the parent's replay bitwise equal: {same}  "
+              f"[{card}]", flush=True)
+        runs = [("parent kernel 1", parent_replay)] + runs + [("parent kernel 1", parent_replay)]
+    for what, fn in runs + runs[::-1][1:]:
+        print(f"[sweep] {what}: {chip_smoke.time_ms(fn):.4f} ms a launch (back to "
+              f"back behind a sleep, the smoke's measure)  [{card}]", flush=True)
+    hz = probe["ghz"] * 1e9
+    print(f"[sweep] kernel 1's longest lane: {int(n_ends.max())} rounds, "
+          f"{int(n_ends.max()) * probe['round_cycles']:.0f} cycles "
+          f"({int(n_ends.max()) * probe['round_cycles'] / hz * 1e6:.3f} us at "
+          f"{hz / 1e9:.3f} GHz)  [{card}]", flush=True)
+
+    # kernel 4 at each tile, D = 25 and 101
+    cap, R, max_depth = 5, 6, 5
+    for dim in (chip_smoke.DIM, 101):
+        st, params, out = chip_smoke._pass_case(dim, chip_smoke.SEED + dim)
+        pristine, _, _ = chip_smoke._pass_case(dim, chip_smoke.SEED + dim)
+        pend = (pristine.draws_done < cap) & pristine.leaf_done
+
+        def reset():
+            for n in fp.RW_FIELDS:
+                fp.lane_field(st, n).copy_(fp.lane_field(pristine, n))
+            for t in out:
+                t.zero_()
+
+        variants = [(f"pass_tile {t}", lambda t=t: fp.fused_pass(
+            st, *params, cap, R, max_depth, out, pass_tile=t)) for t in PASS_TILES]
+        if old:
+            mod, libs = old
+
+            def parent_pass():
+                saved = _cuda._LIBRARIES["fused_pass"]
+                _cuda._LIBRARIES["fused_pass"] = libs["fused_pass"]
+                try:
+                    mod.fused_pass(st, *params, cap, R, max_depth, out)
+                finally:
+                    _cuda._LIBRARIES["fused_pass"] = saved
+
+            reset()
+            parent_pass()
+            want = [t.clone() for t in _pass_outputs(st, out)]
+            reset()
+            variants[0][1]()
+            got = _pass_outputs(st, out)
+            torch.cuda.synchronize()
+            diff = max(float((g.double() - w.double()).abs().nan_to_num(0.0).max())
+                       if g.numel() else 0.0 for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"[sweep] kernel 4, D={dim}: outputs bitwise equal to the parent's: "
+                  f"{same}; largest difference {diff:.3e}  [{card}]", flush=True)
+            variants = [("parent", parent_pass)] + variants[:1] + variants[:1] + \
+                [("parent", parent_pass)] + variants[1:]
+        if old:  # the wrappers' host time alone: 8 rounds of 100 calls each
+            times = {"parent": [], variants[1][0]: []}
+            for r in range(8):
+                for what, fn in variants[:2][::1 if r % 2 else -1]:
+                    reset()
+                    torch.cuda.synchronize()
+                    for _ in range(100):
+                        t0 = time.perf_counter()
+                        fn()
+                        times[what].append(time.perf_counter() - t0)
+                    torch.cuda.synchronize()
+            print(f"[sweep] kernel 4, D={dim}: the wrappers' host time, median of 800 "
+                  f"calls back to back in 8 alternating rounds: " + ", ".join(
+                      f"{w} {np.median(t) * 1e3:.4f} ms" for w, t in times.items())
+                  + f"  [{card}]", flush=True)
+        for what, fn in variants:
+            ms, host = chip_smoke.timed_single(fn, reset, 30)
+            line = (f"[sweep] kernel 4, D={dim}, {what}: {ms:.4f} ms a launch (the "
+                    f"smoke's measure), the wrapper's host time {host:.4f} ms")
+            if what.startswith("pass_tile"):
+                tile = int(what.split()[1])
+                trace = torch.zeros((CHAINS, fp.TRACE_COLS), dtype=torch.int64,
+                                    device="cuda")
+                reset()
+                fp.fused_pass(st, *params, cap, R, max_depth, out, pass_tile=tile,
+                              trace=trace)
+                torch.cuda.synchronize()
+                summary = chip_smoke.pass_trace_summary(trace, pend)
+                line += f"; traced: {chip_smoke.format_trace(summary)}"
+            print(line + f"  [{card}]", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("torch_logreg_sweep.py needs a CUDA device")
@@ -461,9 +742,16 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    argv = sys.argv[1:]
+    parent = None
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        parent = Path(argv[i + 1])
+        del argv[i:i + 2]
     parts = {"logreg": sweep_logreg, "integrator": sweep_integrator,
-             "transition": sweep_transition}
-    for name in sys.argv[1:] or parts:
+             "transition": sweep_transition,
+             "pass": lambda card: sweep_pass(card, parent)}
+    for name in argv or parts:
         parts[name](card)
 
 

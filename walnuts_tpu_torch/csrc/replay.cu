@@ -9,19 +9,26 @@
 // result is bitwise equal to the plain PyTorch version
 // (walnuts_tpu_torch/ops/prng.py::replay_split_chain_plain).
 //
-// What bounds it on the H100: nothing of the card's. At the main path's
-// 4096 lanes and at most tier2_every (6 or 12) rounds, the work is about
-// 4096 x 12 x 2 hashes of ~100 integer operations, well under a
-// microsecond of the card, and 64 KB of traffic. The launch (a few
-// microseconds) is the whole cost.
+// What bounds it on the H100: one lane's chain of dependent hashes, behind
+// the launch. The bytes (40 a lane, 164 KB at the main path's 4096 lanes)
+// take 0.05 us at 3.35 TB/s; the hashes' operations (4096 x 12 x 2 of ~115
+// integer operations) a fraction of a microsecond of the card's rate. But
+// each round's split needs the key of the round before: n_ends <= 12
+// hashes of ~20 dependent add / rotate / xor steps each, some 150-200 SM
+// cycles a hash, ~1-1.5 us for the longest lane, on top of the launch and
+// one round trip to memory. That floor (PERF.md, the kernel table) is
+// what the kernel can reach, not the byte bound.
 //
 // Design: one thread per lane, each looping over ITS OWN n_ends. The TPU
 // kernel loops every lane to the tile-wide max(n_ends) (prng.py:193-195),
 // and the XLA replay needs a host-visible max (core/batched.py:708); on the
 // GPU a thread's loop count is free, so no cross-lane max is taken and no
-// device-to-host read is needed. Keys stay in registers; the launch reads
-// and writes each lane's 16 bytes once. The key storage is the port's int32
-// bit pattern, read here as uint32.
+// device-to-host read is needed. A round is wt::replay_chain's (shared with
+// the fused pass, csrc/fused_pass.cu): both subkeys hashed as two
+// independent chains, then a select, so a warp whose lanes latch at
+// different rounds runs one round's latency per round, not two. Keys stay
+// in registers; the launch reads and writes each lane's 16 bytes once.
+// The key storage is the port's int32 bit pattern, read here as uint32.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,8 +36,6 @@
 #include "threefry.cuh"
 
 namespace {
-
-using wt::threefry2x32;
 
 __global__ void replay_kernel(const uint32_t* __restrict__ key,
                               const uint32_t* __restrict__ ku,
@@ -42,19 +47,23 @@ __global__ void replay_kernel(const uint32_t* __restrict__ key,
   if (c >= lanes) return;
   uint32_t k0 = key[2 * c], k1 = key[2 * c + 1];
   uint32_t u0 = ku[2 * c], u1 = ku[2 * c + 1];
-  const int n = n_ends[c];
-  const int at = leaf_end_at[c];
-  for (int j = 0; j < n; ++j) {
-    if (at == j + 1) threefry2x32(k0, k1, 0u, 1u, u0, u1);
-    threefry2x32(k0, k1, 0u, 0u, k0, k1);
-  }
+  wt::replay_chain(k0, k1, u0, u1, n_ends[c], leaf_end_at[c]);
   key_out[2 * c] = k0;
   key_out[2 * c + 1] = k1;
   ku_out[2 * c] = u0;
   ku_out[2 * c + 1] = u1;
 }
 
+// Does nothing: its launch is the floor every small kernel sits on
+// (chip_smoke.py times it as it times the replay and the fused pass).
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+extern "C" int wt_empty_kernel(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int wt_replay_split_chain(const void* key, const void* ku,
                                      const void* n_ends,

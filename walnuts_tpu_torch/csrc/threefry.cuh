@@ -42,6 +42,28 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   o1 = x1;
 }
 
+// The deferred key-split replay of one chain (kernels 1 and 4): n
+// sequential splits of (k0, k1), keeping subkey 0; at round `at` (1-based)
+// subkey 1 is latched into (u0, u1). Each round hashes both subkeys of the
+// current key, two independent chains the card runs side by side, and
+// selects, as walnuts_tpu/ops/prng.py::_replay_kernel does: the latch is
+// no branch, so the lanes of a warp that latch at different rounds do not
+// run the latch hash one after the other.
+__device__ __forceinline__ void replay_chain(uint32_t& k0, uint32_t& k1,
+                                             uint32_t& u0, uint32_t& u1,
+                                             int n, int at) {
+  for (int j = 0; j < n; ++j) {
+    uint32_t n0, n1, l0, l1;
+    threefry2x32(k0, k1, 0u, 0u, n0, n1);
+    threefry2x32(k0, k1, 0u, 1u, l0, l1);
+    const bool hit = at == j + 1;
+    u0 = hit ? l0 : u0;
+    u1 = hit ? l1 : u1;
+    k0 = n0;
+    k1 = n1;
+  }
+}
+
 // jax's uniform [0, 1) from the two threefry words: the mantissa is filled
 // with random bits at exponent 0 and 1 is subtracted.
 template <typename T>

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "replay": {
         "wt_replay_split_chain": [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_void_p],
+        # blocks, threads a block, stream
+        "wt_empty_kernel": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     },
     "logreg": {
         "wt_logreg_value_grad": [ctypes.c_void_p] * 5

@@ -26,6 +26,10 @@ lane's draw index, as the unfused route does: the port has no B-deep ring.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import operator
+import threading
 
 import numpy as np
 import torch
@@ -316,8 +320,7 @@ def bank_draws(out, complete, sel_theta, sel_logp, out_depth, bank_idx):
 # the fused pass (kernel 4)
 # ---------------------------------------------------------------------------
 
-# The lane fields the pass reads and writes, by kind. The order is the
-# contract with FusedPassArgs in csrc/fused_pass.cu.
+# The lane fields the pass reads and writes, by kind.
 F_RW = ("run_sel_logp", "run_logw", "ms_joint", "dt", "lp_cur",
         "acc_jt_bk", "acc_jt_fw", "acc_lp_sel", "acc_logw")
 I_RW = ("depth", "out_depth", "leaf_idx", "n_leaves", "halvings",
@@ -335,18 +338,33 @@ F_RO = ("fwd_logp_pos", "fwd_joint", "step")
 I_RO = ("min_micro",)
 BANK = ("draws", "logps", "depths")
 RW_FIELDS = F_RW + I_RW + B_RW + K_RW + ROW_RW + STACK_RW
-_POINTERS = RW_FIELDS + ROW_RO + F_RO + I_RO + BANK
+# The kernel's operands in the order of FusedPassArgs' pointers in
+# csrc/fused_pass.cu (enum Ptr): the 28 per-lane scalars first, lane i of
+# a warp loading scalar i, then the key data, the rows, the stack and the
+# block's output.
+_POINTERS = (F_RW + F_RO + I_RW + I_RO + B_RW + K_RW + ROW_RW + STACK_RW
+             + ROW_RO + BANK)
+_RW = frozenset(RW_FIELDS + BANK)
 _INTS = ("chains", "dim", "n_slots", "max_depth", "block_draws", "cap",
          "chains_per_block", "is_double")
+#: columns of the kernel's optional trace: the card's clock (ns) at entry
+#: and exit, the SM, and the SM's cycle count at each of TRACE_MARKS (the
+#: chain's warp: entry, its scalars in, its cascade summed, its rows
+#: written; its control lane: the replay and hashes done, the decisions,
+#: the tail stored)
+TRACE_COLS = 11
+TRACE_MARKS = ("entry", "scalars", "cascade", "replay", "decisions", "rows",
+               "tail")
 
 #: chains per CUDA block (one warp each) when ``pass_tile`` is None
 DEFAULT_PASS_TILE = 8
 
 
 class FusedPassArgs(ctypes.Structure):
-    """The kernel's operands: every pointer, then the sizes."""
+    """The kernel's operands: every pointer, the trace, then the sizes."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
+                + [("trace", ctypes.c_void_p)]
                 + [(n, ctypes.c_int) for n in _INTS])
 
 
@@ -369,61 +387,88 @@ def own_storage(s):
         n: getattr(s, n).clone() for n in RW_FIELDS if n != "n_depth_exhausted"})
 
 
-def _operands(s, step, inv_mass, min_micro, out):
-    ops = {n: lane_field(s, n) for n in RW_FIELDS + ROW_RO[:3] + F_RO[:2]}
-    ops.update(inv_mass=inv_mass, step=step, min_micro=min_micro,
-               draws=out[0], logps=out[1], depths=out[2])
-    return ops
+def _operands(s, step, inv_mass, min_micro, out) -> tuple:
+    """The kernel's operands, in ``_POINTERS`` order."""
+    extra = {"step": step, "inv_mass": inv_mass, "min_micro": min_micro,
+             "draws": out[0], "logps": out[1], "depths": out[2],
+             "n_depth_exhausted": s.fails.n_depth_exhausted}
+    return tuple(extra[n] if n in extra else getattr(s, n) for n in _POINTERS)
+
+
+@functools.lru_cache(maxsize=32)
+def _wanted(C: int, D: int, n_slots: int, R: int, fdt) -> tuple:
+    """Each operand's dtype, shape and byte count, three tuples in
+    ``_POINTERS`` order."""
+    kind = {}
+    kind.update({n: (fdt, (C,)) for n in F_RW + F_RO})
+    kind.update({n: (torch.int32, (C,)) for n in I_RW + I_RO})
+    kind.update({n: (torch.bool, (C,)) for n in B_RW})
+    kind.update({n: (torch.int32, (C, 2)) for n in K_RW})
+    kind.update({n: (fdt, (C, D)) for n in ROW_RW + ROW_RO})
+    kind.update(stack_e=(fdt, (C, n_slots, 2, D)), draws=(fdt, (R, C, D)),
+                logps=(fdt, (R, C)), depths=(torch.int32, (R, C)))
+    dts, shapes = zip(*(kind[n] for n in _POINTERS))
+    nbytes = tuple(math.prod(sh) * dt.itemsize for dt, sh in zip(dts, shapes))
+    return dts, shapes, nbytes
+
+
+_DTYPE, _SHAPE = operator.attrgetter("dtype"), operator.attrgetter("shape")
+_IS_RW = tuple(n in _RW for n in _POINTERS)
 
 
 def _check(ops, max_depth: int, block_draws: int):
     """Every operand's dtype, shape, device and contiguity, and no
-    read-write operand overlapping another operand's memory."""
-    C, D = ops["run_sel"].shape
-    dev = ops["run_sel"].device
+    read-write operand overlapping another operand's memory. ``ops`` in
+    ``_POINTERS`` order; each property is read once per operand, in one
+    pass. Returns ``(C, D, n_slots, ptrs)``, ``ptrs`` each operand's
+    address."""
+    ref = ops[_POINTERS.index("run_sel")]
+    C, D = ref.shape
+    dev = ref.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_pass: unsupported device {dev}")
-    fdt = ops["run_sel"].dtype
+    fdt = ref.dtype
     if fdt not in (torch.float32, torch.float64):
         raise ValueError(f"fused_pass: rows must be float32 or float64, not {fdt}")
     n_slots = max(max_depth - 1, 1)
-    R = int(block_draws)
-    want = {}
-    for n in F_RW + F_RO:
-        want[n] = (fdt, (C,))
-    for n in I_RW + I_RO:
-        want[n] = (torch.int32, (C,))
-    for n in B_RW:
-        want[n] = (torch.bool, (C,))
-    for n in K_RW:
-        want[n] = (torch.int32, (C, 2))
-    for n in ROW_RW + ROW_RO:
-        want[n] = (fdt, (C, D))
-    want["stack_e"] = (fdt, (C, n_slots, 2, D))
-    want.update(draws=(fdt, (R, C, D)), logps=(fdt, (R, C)),
-                depths=(torch.int32, (R, C)))
-    for n, (dt, shape) in want.items():
-        t = ops[n]
-        if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"fused_pass: {n} must be a contiguous {dt} {shape} tensor on "
-                f"{dev}; got {t.dtype} {tuple(t.shape)} on {t.device}"
-                f"{'' if t.is_contiguous() else ', not contiguous'}")
-    spans = sorted(
-        (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), n)
-        for n, t in ops.items() if t.numel())
-    rw = set(RW_FIELDS + BANK)
+    dts, shapes, nbytes = _wanted(C, D, n_slots, int(block_draws), fdt)
+    if (tuple(map(_DTYPE, ops)) != dts or tuple(map(_SHAPE, ops)) != shapes
+            or tuple(map(torch.Tensor.get_device, ops))
+            != (ref.get_device(),) * len(ops)
+            or not all(map(torch.Tensor.is_contiguous, ops))):
+        for n, t, dt, shape in zip(_POINTERS, ops, dts, shapes):
+            if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"fused_pass: {n} must be a contiguous {dt} {shape} tensor "
+                    f"on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device}"
+                    f"{'' if t.is_contiguous() else ', not contiguous'}")
+    ptrs = list(map(torch.Tensor.data_ptr, ops))
+    # sorted by address, a span that starts below the highest end so far
+    # overlaps an earlier span: read-write on either side is refused
+    top, top_rw = 0, False
+    for lo, hi, rw in sorted(zip(ptrs, map(int.__add__, ptrs, nbytes), _IS_RW)):
+        if hi == lo:
+            continue
+        if lo < top and (rw or top_rw):
+            _refuse_overlap(ptrs, nbytes)
+        if hi > top:
+            top, top_rw = hi, rw
+    return C, D, n_slots, ptrs
+
+
+def _refuse_overlap(ptrs, nbytes):
+    """Raise naming two operands that share memory, one of them read-write."""
+    spans = sorted((p, p + b, n) for p, b, n in zip(ptrs, nbytes, _POINTERS) if b)
     for i, (lo, hi, n) in enumerate(spans):
         for lo2, hi2, n2 in spans[i + 1:]:
             if lo2 >= hi:
                 break
-            if n in rw or n2 in rw:
+            if n in _RW or n2 in _RW:
                 raise ValueError(
                     f"fused_pass: {n} and {n2} share memory; the pass writes "
                     f"in place, so each read-write operand needs its own "
                     f"storage (see own_storage)")
-    return C, D, n_slots
 
 
 def fused_pass_plain(s, step, inv_mass, min_micro, cap: int, block_draws: int,
@@ -440,8 +485,21 @@ def fused_pass_plain(s, step, inv_mass, min_micro, cap: int, block_draws: int,
         lane_field(s, n).copy_(lane_field(new, n))
 
 
+_LAUNCH = threading.local()
+
+
+def _launch_args():
+    """This thread's ``FusedPassArgs``, made once, and a view of its
+    pointers as one array (filled by one slice assignment a launch)."""
+    args = getattr(_LAUNCH, "args", None)
+    if args is None:
+        args = _LAUNCH.args = FusedPassArgs()
+        _LAUNCH.ptrs = (ctypes.c_void_p * len(_POINTERS)).from_buffer(args)
+    return args, _LAUNCH.ptrs
+
+
 def fused_pass(s, step, inv_mass, min_micro, cap: int, block_draws: int,
-               max_depth: int, out, pass_tile=None) -> None:
+               max_depth: int, out, pass_tile=None, trace=None) -> None:
     """One tier-2 pass of the sampling block, banking included, in place.
 
     ``s`` is the block's ``LaneState`` (its pass fields in their own
@@ -451,14 +509,17 @@ def fused_pass(s, step, inv_mass, min_micro, cap: int, block_draws: int,
     count R; ``out = (draws (R, C, D), logps (R, C), depths (R, C) int32)``
     receives the completed draws. CPU tensors take :func:`fused_pass_plain`;
     CUDA tensors launch ``csrc/fused_pass.cu`` (``pass_tile`` chains per
-    CUDA block, one warp each). The operands are checked on either device.
+    CUDA block, one warp each; fewer where a chain's staged rows would not
+    fit a block's shared memory). The operands are checked on either
+    device. ``trace``, None or a contiguous ``(C, TRACE_COLS)`` int64 tensor
+    on the card, receives each chain's phase times (:data:`TRACE_MARKS`).
     """
     ops = _operands(s, step, inv_mass, min_micro, out)
-    C, D, n_slots = _check(ops, max_depth, block_draws)
+    C, D, n_slots, ptrs = _check(ops, max_depth, block_draws)
     tile = DEFAULT_PASS_TILE if pass_tile is None else int(pass_tile)
     if not 1 <= tile <= 32:
         raise ValueError(f"fused_pass: pass_tile must be in [1, 32]; got {tile}")
-    dev = ops["run_sel"].device
+    dev = ops[0].device
     if dev.type == "cpu":
         fused_pass_plain(s, step, inv_mass, min_micro, cap, block_draws,
                          max_depth, out)
@@ -466,18 +527,30 @@ def fused_pass(s, step, inv_mass, min_micro, cap: int, block_draws: int,
     from walnuts_tpu_torch.ops import _cuda
 
     lib = _cuda.library("fused_pass")
-    if lib.wt_fused_pass_args_size() != ctypes.sizeof(FusedPassArgs):
-        raise RuntimeError("fused_pass: FusedPassArgs differs from the kernel's")
+    if not getattr(lib, "args_size_checked", False):
+        if lib.wt_fused_pass_args_size() != ctypes.sizeof(FusedPassArgs):
+            raise RuntimeError("fused_pass: FusedPassArgs differs from the kernel's")
+        lib.args_size_checked = True
     if C == 0:
         return
-    args = FusedPassArgs(
-        **{n: t.data_ptr() for n, t in ops.items()},
-        chains=C, dim=D, n_slots=n_slots, max_depth=int(max_depth),
-        block_draws=int(block_draws), cap=int(cap), chains_per_block=tile,
-        is_double=int(ops["run_sel"].dtype == torch.float64))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.wt_fused_pass(ctypes.addressof(args), stream)
+    if trace is not None and (trace.dtype != torch.int64 or trace.device != dev
+                              or tuple(trace.shape) != (C, TRACE_COLS)
+                              or not trace.is_contiguous()):
+        raise ValueError(f"fused_pass: trace must be a contiguous int64 "
+                         f"({C}, {TRACE_COLS}) tensor on {dev}")
+    args, arr = _launch_args()
+    arr[:] = ptrs
+    args.trace = None if trace is None else trace.data_ptr()
+    args.chains, args.dim, args.n_slots, args.max_depth = C, D, n_slots, int(max_depth)
+    args.block_draws, args.cap, args.chains_per_block = int(block_draws), int(cap), tile
+    args.is_double = int(ops[0].dtype == torch.float64)
+    if dev.index == torch.cuda.current_device():
+        err = lib.wt_fused_pass(ctypes.addressof(args),
+                                torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.wt_fused_pass(ctypes.addressof(args),
+                                    torch.cuda.current_stream().cuda_stream)
     _cuda.check(err, "wt_fused_pass")
     fused_pass.launches += 1
 
