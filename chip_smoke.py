@@ -2,9 +2,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version at the main path's shapes, then drives four paths of the port on
-adaptive WALNUTS for the 25-coefficient logistic regression (1000 rows)
-with the fused model kernel, 4096 chains, float32:
+version at the main path's shapes, then drives six paths of the port on
+adaptive WALNUTS: four on the 25-coefficient logistic regression (1000
+rows) with the fused model kernel, 4096 chains, float32, and two on the
+bench's other models:
 
 - the main path, ``walnuts_tpu_torch.walnuts`` (batched scheduler, 30
   warmup + 30 sampling iterations): the replay and logistic-regression
@@ -22,10 +23,22 @@ with the fused model kernel, 4096 chains, float32:
   (momenta, the logistic-regression kernel for the start point, one launch
   per draw, no host sync in the loop), then 4 launches of 100 draws
   through ``make_fused_sample_block``; then 20 draws of each beside the
-  classic A/B's 20 iterations.
+  classic A/B's 20 iterations;
+- the funnel path: ``walnuts()`` on funnel(101) x 4096, float32, in 4
+  cost-sorted groups (``batched_groups=4``, run-ahead 4, a tier-2 pass every
+  6 trips; 6 + 10 iterations, blocks of 5): the replay must run on it,
+  and theta[0]'s pooled moments must agree with the JAX package's at the
+  same configuration (``FUNNEL_REF``);
+- the SV path: ``walnuts()`` on the stochastic-volatility model (D = 1003)
+  x 1024, float32 (run-ahead 8, a tier-2 pass every 12 trips, block 50;
+  15 + 3 iterations), then 10 sampling iterations twice from its warmed
+  state, with the unfused pass and with ``pallas_pass=True``: the replay
+  must run on the first, the fused pass on the second, their draws must be
+  bitwise equal, and the device ESS of the draw tensor (on the card,
+  ``summary_device``) must agree with the host estimator's.
 
-Each path's draws must be finite, and their pooled posterior mean and sd
-must agree with NumPy references (a Newton MAP, its Laplace sd, and the
+Each logistic-regression path's draws must be finite, and their pooled
+posterior mean and sd must agree with NumPy references (a Newton MAP, its Laplace sd, and the
 importance-reweighted Laplace mean). Kernels 1, 3, 4, 5a and 5b are also
 timed on their own paths, beside the bound of those launches: kernels 1
 and 3 by relaunching every launch of the main path (1) and of the classic
@@ -42,8 +55,9 @@ device time by kernel. ``--ab`` samples the fused route's warmed state four
 times, unfused, fused, fused, unfused, for an A/B of the two passes. Any
 failed phase raises (non-zero exit). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
-route, launches on its path, error against its plain version, times and
-bound (the integrator's and the transition kernels' with their
+route, launches on its logistic-regression path (and on the funnel and SV
+paths: ``launches_funnel``, ``launches_sv``, with the time and bound of a
+launch there), error against its plain version, times and bound (the integrator's and the transition kernels' with their
 logistic-regression body; their three other bodies are checked and printed
 on earlier lines), the logistic-regression kernel's two ``torch.matmul``
 products (``matmul_ms``), the time and bound of a launch on the path
@@ -51,7 +65,8 @@ products (``matmul_ms``), the time and bound of a launch on the path
 kernel's two times beside kernel 1 (``empty_queued_ms``,
 ``empty_single_ms``), and beside kernel 4 its wrapper's host time
 (``host_ms``) and its time and bound at D = 101 (``ms_d101``,
-``bound_ms_d101``).
+``bound_ms_d101``) and at D = 1003 with the SV path's 1024 chains
+(``ms_d1003``, ``bound_ms_d1003``).
 """
 
 from __future__ import annotations
@@ -105,6 +120,57 @@ LEAD_CYCLES = 20_000_000
 # the fused route's pass launches kept for their time on the path: every
 # PASS_EVERY-th (a copy of the lane state each, ~12 MB at D = 25)
 PASS_EVERY = 10
+# the funnel path: Neal's funnel at the bench's width (bench.py), 4096
+# chains in 4 cost-sorted groups, run-ahead 4, a tier-2 pass every 6 trips,
+# cut in length from the bench's 400 + 400 (100 + 100 took 1017 s on the
+# card, host-bound, 6 + 10 174 s, 4 + 10 242 s: the first warmup
+# iterations cost the most, and a shorter warmup leaves sampling less
+# adapted), in blocks of 5 so that the groups are re-sorted by realized
+# cost; theta[0] ~ N(0, 3^2)
+FUNNEL_DIM = 101
+FUNNEL_WARMUP = 6
+FUNNEL_SAMPLING = 10
+FUNNEL_BLOCK = 5
+FUNNEL_GROUPS = 4
+# theta[0]'s pooled moments from the JAX package at this configuration,
+# seed and lengths, on the CPU with 1024 chains. At these lengths neither
+# package reaches the exact N(0, 3^2) (mean 0, sd 3): the chains have not
+# mixed through the neck, so the exact marginal is reported and these are
+# the check. Seeds 2036, 2037, 2038 gave means 0.9884, 0.9823, 1.0386 and
+# sds 1.3853, 1.4511, 1.4264: the port is held within 0.15 of the mean
+# (about three times that spread) and 10 % of the sd. To recompute, with
+# JAX on the CPU (~50 s a seed):
+#
+#   import jax; jax.config.update("jax_platforms", "cpu")
+#   import jax.numpy as jnp, numpy as np, chip_smoke as cs, walnuts_tpu as wt
+#   from walnuts_tpu.models import funnel
+#   for seed in (cs.SEED + 10, cs.SEED + 11, cs.SEED + 12):
+#       out = wt.walnuts(
+#           funnel(cs.FUNNEL_DIM)[0], num_params=cs.FUNNEL_DIM, num_chains=1024,
+#           seed=seed, dtype=jnp.float32, min_warmup_iter=cs.FUNNEL_WARMUP,
+#           max_warmup_iter=cs.FUNNEL_WARMUP, min_sampling_iter=cs.FUNNEL_SAMPLING,
+#           max_sampling_iter=cs.FUNNEL_SAMPLING, block_size=cs.FUNNEL_BLOCK,
+#           batched_groups=cs.FUNNEL_GROUPS, runahead=4, tier2_every=6,
+#           max_step_halvings=cs.HALVINGS)
+#       v = np.stack([np.asarray(o)[:, 0] for o in out]).astype(np.float64)
+#       print(seed, v.mean(), v.std())
+FUNNEL_REF = dict(mean=0.9883816999579551, sd=1.385311888597187)
+FUNNEL_MEAN_TOL = 0.15
+FUNNEL_SD_TOL = 0.10
+# the stochastic-volatility path: the bench's 1000 time steps (D = 1003),
+# 1024 chains, run-ahead 8, a tier-2 pass every 12 trips, block 50, cut in
+# length from the bench's 200 + 200 (30 + 10 took 185 s on the card, 20 + 5
+# 111 s); then SV_SAMPLING iterations twice from the warmed state, the
+# unfused and the fused pass (every SV_PASS_EVERY-th launch of kernel 4
+# kept: ~0.1 GB a copy of the lane state)
+SV_CHAINS = 1024
+SV_WARMUP = 15
+SV_MAIN_SAMPLING = 3
+SV_SAMPLING = 10
+SV_PASS_EVERY = 10
+# dimensions whose device ESS is held to the host estimator's: the three
+# hyperparameters and three latent steps
+SV_ESS_DIMS = (0, 1, 2, 3, 503, 1002)
 
 
 def card_label() -> str:
@@ -363,20 +429,20 @@ def check_logreg(card: str) -> dict:
                 matmul_ms=mm_ms)
 
 
-def _pass_case(dim: int, seed: int):
-    """A synthetic lane state at the main path's batch, on the card, its
-    frozen parameters and an empty block output."""
+def _pass_case(dim: int, seed: int, chains: int = CHAINS):
+    """A synthetic lane state of ``chains`` chains on the card, its frozen
+    parameters and an empty block output."""
     from walnuts_tpu_torch.convert import lane_state_from_fields
     from walnuts_tpu_torch.ops.fused_pass import synthetic_pass_inputs
 
-    fields, p = synthetic_pass_inputs(CHAINS, dim, 5, 6, seed)
+    fields, p = synthetic_pass_inputs(chains, dim, 5, 6, seed)
     st = lane_state_from_fields(fields, torch.float32, DEVICE)
     params = (torch.tensor(p["step"], dtype=torch.float32, device=DEVICE),
               torch.tensor(p["inv_mass"], dtype=torch.float32, device=DEVICE),
               torch.tensor(p["min_micro"], device=DEVICE))
-    out = (torch.zeros((6, CHAINS, dim), device=DEVICE),
-           torch.zeros((6, CHAINS), device=DEVICE),
-           torch.zeros((6, CHAINS), dtype=torch.int32, device=DEVICE))
+    out = (torch.zeros((6, chains, dim), device=DEVICE),
+           torch.zeros((6, chains), device=DEVICE),
+           torch.zeros((6, chains), dtype=torch.int32, device=DEVICE))
     return st, params, out
 
 
@@ -402,14 +468,14 @@ def _pass_bytes(before, after, out, dim: int, n_slots: int, cap: int) -> float:
     return 4.0 * dim * (int(rows_read) + rows_written) + scalars
 
 
-def check_fused_pass(card: str, dim: int) -> dict:
-    """One tier-2 pass, kernel against plain, at C = 4096 and width dim."""
+def check_fused_pass(card: str, dim: int, chains: int = CHAINS) -> dict:
+    """One tier-2 pass, kernel against plain, at C = chains and width dim."""
     from walnuts_tpu_torch.ops import fused_pass as fp
 
     cap, R, max_depth = 5, 6, 5
-    st_k, params, out_k = _pass_case(dim, SEED + dim)
-    st_p, _, out_p = _pass_case(dim, SEED + dim)
-    pristine, _, _ = _pass_case(dim, SEED + dim)
+    st_k, params, out_k = _pass_case(dim, SEED + dim, chains)
+    st_p, _, out_p = _pass_case(dim, SEED + dim, chains)
+    pristine, _, _ = _pass_case(dim, SEED + dim, chains)
     fp.fused_pass(st_k, *params, cap, R, max_depth, out_k)
     fp.fused_pass_plain(st_p, *params, cap, R, max_depth, out_p)
     torch.cuda.synchronize()
@@ -422,7 +488,7 @@ def check_fused_pass(card: str, dim: int) -> dict:
                 raise AssertionError(f"fused pass: {name} finite on one side only")
             float_err = max(float_err, float((k - p)[both].abs().max()) if both.any() else 0.0)
         elif not torch.equal(k, p):
-            bad = int((k != p).reshape(CHAINS, -1).any(-1).sum())
+            bad = int((k != p).reshape(chains, -1).any(-1).sum())
             raise AssertionError(f"fused pass: {name} differs on {bad} lanes")
     if not torch.equal(out_k[2], out_p[2]):
         raise AssertionError("fused pass: banked depths differ")
@@ -448,14 +514,14 @@ def check_fused_pass(card: str, dim: int) -> dict:
                                                          max_depth, out_k)),
                          "fused_pass_kernel", reps=20)
     reset()
-    trace = torch.zeros((CHAINS, fp.TRACE_COLS), dtype=torch.int64, device=DEVICE)
+    trace = torch.zeros((chains, fp.TRACE_COLS), dtype=torch.int64, device=DEVICE)
     fp.fused_pass(st_k, *params, cap, R, max_depth, out_k, trace=trace)
     torch.cuda.synchronize()
     tr = pass_trace_summary(trace, (pristine.draws_done < cap) & pristine.leaf_done)
     nbytes = _pass_bytes(pristine, st_p, out_p, dim, max_depth - 1, cap)
     bound_ms, bound_by = bound(nbytes, 0.0)
     pend = int(((pristine.draws_done < cap) & pristine.leaf_done).sum())
-    print(f"[fused pass] D={dim}: kernel against plain at C={CHAINS} ({pend} "
+    print(f"[fused pass] D={dim}: kernel against plain at C={chains} ({pend} "
           f"pending lanes): integers, flags and keys equal on every lane, "
           f"largest float difference {float_err:.3e}; kernel {ms:.4f} ms "
           f"(profiler device time "
@@ -820,7 +886,7 @@ def run_main_path(card: str, ref) -> dict:
     return launches, path_replay_ms(card, recording.calls)
 
 
-def path_replay_ms(card: str, calls) -> dict:
+def path_replay_ms(card: str, calls, path: str = "main path") -> dict:
     """Kernel 1 at the main path's own operands: every launch relaunched
     under ``torch.profiler`` (device time of the kernel alone; CUDA events
     over the relaunches where the profiler sees none), and the bound of
@@ -838,12 +904,14 @@ def path_replay_ms(card: str, calls) -> dict:
         how = "CUDA events"
     hashes = sum(int(a[2].sum()) + int(((a[3] >= 1) & (a[3] <= a[2])).sum())
                  for a in calls)
-    bound_ms, bound_by = bound(40.0 * CHAINS * len(calls), THREEFRY_OPS * hashes)
+    lanes = sum(int(a[2].numel()) for a in calls)
+    bound_ms, bound_by = bound(40.0 * lanes, THREEFRY_OPS * hashes)
     bound_ms /= len(calls)
     longest = max(int(a[2].max()) for a in calls)
-    print(f"[main path] kernel 1 on the main path: its {len(calls)} launches "
-          f"relaunched on their own operands (n_ends up to {longest}, "
-          f"{hashes / len(calls) / CHAINS:.3f} hashes a lane and launch): "
+    print(f"[{path}] kernel 1 on the {path}: its {len(calls)} launches "
+          f"relaunched on their own operands ({lanes / len(calls):.0f} lanes a "
+          f"launch, n_ends up to {longest}, {hashes / lanes:.3f} hashes a lane "
+          f"and launch): "
           f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
           f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
     return dict(path_ms=ms, path_bound_ms=bound_ms)
@@ -875,7 +943,8 @@ class _PassRecording:
         return self.fn(s, *args, **kwargs)
 
 
-def path_pass_ms(card: str, calls) -> dict:
+def path_pass_ms(card: str, calls, every: int = PASS_EVERY,
+                 path: str = "fused route") -> dict:
     """Kernel 4 at the fused route's own lane states: each recorded launch
     relaunched on a copy of its state under ``torch.profiler`` (device
     time of the kernel alone), and the bound of those launches."""
@@ -910,8 +979,8 @@ def path_pass_ms(card: str, calls) -> dict:
         pend += float(((st.draws_done < cap) & st.leaf_done).float().mean())
         ends = max(ends, int(st.n_ends.max()))
     bound_ms, bound_by = bound(nbytes / len(calls), 0.0)
-    print(f"[fused route] kernel 4 on the fused route: {len(calls)} of its launches "
-          f"(every {PASS_EVERY}th) relaunched on copies of their lane states "
+    print(f"[{path}] kernel 4 on the {path}: {len(calls)} of its launches "
+          f"(every {every}th) relaunched on copies of their lane states "
           f"(n_ends up to {ends}, {pend / len(calls):.3f} of the lanes pending): "
           f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
           f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
@@ -1412,6 +1481,219 @@ def run_transition_ab(card: str, ws, classic: tuple) -> None:
           f"{grads_b / wall_b:.1f} per s  [{card}]")
 
 
+def _print_phases(what: str, info, card: str) -> None:
+    for phase in ("warmup", "sampling"):
+        nb = info.n_blocks[phase]
+        print(f"[{what}] {phase}: {info.seconds[phase]:.3f} s, {nb} blocks, "
+              f"{info.n_inner_trips[phase]} trips, {info.n_outer_trips[phase]} "
+              f"tier-2 passes, {info.n_syncs[phase]} syncs  [{card}]")
+
+
+def run_funnel_path(card: str) -> tuple:
+    """``walnuts()`` on funnel(101) x 4096 in 4 cost-sorted groups: finite
+    draws, and theta[0]'s pooled mean within ``FUNNEL_MEAN_TOL`` and its
+    pooled sd within ``FUNNEL_SD_TOL`` of the JAX package's at the same
+    configuration (``FUNNEL_REF``). Returns the replay's launches and its
+    time on the path."""
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch import summary
+    from walnuts_tpu_torch.models import funnel
+    from walnuts_tpu_torch.ops import prng
+
+    logp, dim = funnel(FUNNEL_DIM)
+    torch.cuda.synchronize()
+    replay = prng.replay_split_chain
+    recording = prng.replay_split_chain = _Recording(replay)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out, info = wtt.walnuts(
+            logp, num_params=dim, num_chains=CHAINS, dtype=torch.float32,
+            seed=SEED + 10, device=DEVICE, min_warmup_iter=FUNNEL_WARMUP,
+            max_warmup_iter=FUNNEL_WARMUP, min_sampling_iter=FUNNEL_SAMPLING,
+            max_sampling_iter=FUNNEL_SAMPLING, block_size=FUNNEL_BLOCK,
+            batched_groups=FUNNEL_GROUPS, runahead=4, tier2_every=6,
+            max_step_halvings=HALVINGS, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prng.replay_split_chain = replay
+    launches = _counts()
+    if launches["replay_split_chain"] <= 0:
+        raise AssertionError("the funnel path never launched replay_split_chain")
+    draws = np.stack([np.asarray(c) for c in out], axis=1)  # (R, C, D)
+    if draws.shape != (FUNNEL_SAMPLING, CHAINS, dim) or not np.isfinite(draws).all():
+        raise AssertionError(f"funnel path: bad draws: shape {draws.shape}, "
+                             f"finite {np.isfinite(draws).all()}")
+    v = draws[:, :, 0].astype(np.float64)
+    mean, sd = float(v.mean()), float(v.std())
+    per_chain = list(np.moveaxis(draws, 1, 0))
+    ess = summary.ess(per_chain)
+    n_grads = float(np.sum(info.n_grads))
+    w_s, s_s = info.seconds["warmup"], info.seconds["sampling"]
+    print(f"[funnel path] funnel({dim}) x {CHAINS} chains, float32, "
+          f"{FUNNEL_WARMUP} + {FUNNEL_SAMPLING} iterations, block {FUNNEL_BLOCK}, "
+          f"batched_groups {FUNNEL_GROUPS}, runahead 4, tier2_every 6, "
+          f"max_step_halvings {HALVINGS}: wall {wall:.3f} s  [{card}]")
+    _print_phases("funnel path", info, card)
+    print(f"[funnel path] gradients used {n_grads:.0f}, {n_grads / (w_s + s_s):.1f} "
+          f"per s; median ESS {np.median(ess):.1f}, ESS of theta[0] {ess[0]:.1f}, "
+          f"min ESS {ess.min():.1f}; median ESS per sampling s "
+          f"{np.median(ess) / s_s:.1f}  [{card}]")
+    ref_mean, ref_sd = FUNNEL_REF["mean"], FUNNEL_REF["sd"]
+    print(f"[funnel path] theta[0] pooled mean {mean:.4f}, sd {sd:.4f}; the JAX "
+          f"package's at this configuration {ref_mean:.4f}, {ref_sd:.4f}: mean "
+          f"{abs(mean - ref_mean):.4f} apart (limit {FUNNEL_MEAN_TOL}), sd ratio "
+          f"{sd / ref_sd:.4f} (limit 1 +- {FUNNEL_SD_TOL}); the exact N(0, 3^2): mean "
+          f"{abs(mean) / 3.0:.4f} sd off, sd ratio {sd / 3.0:.4f} (reported only); "
+          f"launches {json.dumps(launches)}  [{card}]")
+    if abs(mean - ref_mean) > FUNNEL_MEAN_TOL or abs(sd / ref_sd - 1.0) > FUNNEL_SD_TOL:
+        raise AssertionError("funnel path: theta[0] disagrees with the reference")
+    return launches, path_replay_ms(card, recording.calls, "funnel path")
+
+
+class _WarmupCapture:
+    """Stands in for ``api.run_warmup`` and keeps the warmed state it
+    returns."""
+
+    def __init__(self, fn):
+        self.fn, self.state = fn, None
+
+    def __call__(self, *args, **kwargs):
+        res = self.fn(*args, **kwargs)
+        self.state = res[0]
+        return res
+
+
+def run_sv_path(card: str) -> tuple:
+    """``walnuts()`` on the stochastic-volatility model (D = 1003) x 1024,
+    then SV_SAMPLING sampling iterations twice from its warmed state, with
+    the unfused and the fused tier-2 pass: draws finite and bitwise equal
+    between the two, the device ESS of the cube against the host's.
+    Returns the launches of kernels 1 (``walnuts()``) and 4 (the fused
+    run) and their times on the path."""
+    import walnuts_tpu_torch as wtt
+    import walnuts_tpu_torch.api as api
+    from walnuts_tpu_torch import parity, summary
+    from walnuts_tpu_torch.config import SamplingConfig
+    from walnuts_tpu_torch.core import batched
+    from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
+    from walnuts_tpu_torch.models import stochastic_volatility
+    from walnuts_tpu_torch.ops import prng
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+    from walnuts_tpu_torch.summary_device import effective_sample_size_device_chunked
+
+    logp, dim = stochastic_volatility(device=DEVICE)
+    torch.cuda.synchronize()
+    replay, warmup = prng.replay_split_chain, api.run_warmup
+    recording = prng.replay_split_chain = _Recording(replay)
+    capture = api.run_warmup = _WarmupCapture(warmup)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out, info = wtt.walnuts(
+            logp, num_params=dim, num_chains=SV_CHAINS, dtype=torch.float32,
+            seed=SEED + 20, device=DEVICE, min_warmup_iter=SV_WARMUP,
+            max_warmup_iter=SV_WARMUP, min_sampling_iter=SV_MAIN_SAMPLING,
+            max_sampling_iter=SV_MAIN_SAMPLING, block_size=50, runahead=8,
+            tier2_every=12, max_step_halvings=HALVINGS, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prng.replay_split_chain, api.run_warmup = replay, warmup
+    launches = _counts()
+    if launches["replay_split_chain"] <= 0:
+        raise AssertionError("the SV path never launched replay_split_chain")
+    main = np.stack([np.asarray(c) for c in out], axis=1)
+    if main.shape != (SV_MAIN_SAMPLING, SV_CHAINS, dim) or not np.isfinite(main).all():
+        raise AssertionError(f"SV path: bad draws of walnuts(): {main.shape}")
+    print(f"[SV path] stochastic_volatility() (D = {dim}) x {SV_CHAINS} chains, "
+          f"float32, {SV_WARMUP} + {SV_MAIN_SAMPLING} iterations, block 50, "
+          f"runahead 8, tier2_every 12, max_step_halvings {HALVINGS}: wall "
+          f"{wall:.3f} s; launches {json.dumps(launches)}  [{card}]")
+    _print_phases("SV path", info, card)
+
+    logp_grad = make_logp_grad(logp)
+    params, ss = freeze_params(capture.state), init_sample_state(capture.state)
+    scfg = SamplingConfig(min_iter=SV_SAMPLING, max_iter=SV_SAMPLING, block_size=50,
+                          max_step_halvings=HALVINGS)
+    cubes, recorded = {}, None
+    for name in ("unfused", "fused"):
+        pass_fn = batched.fused_pass
+        if name == "fused":
+            batched.fused_pass = recorded = _PassRecording(pass_fn, SV_PASS_EVERY)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            _, d, _, sinfo = run_sampling(logp_grad, ss, params, scfg, runahead=8,
+                                          tier2_every=12, pallas_pass=name == "fused")
+            torch.cuda.synchronize()
+        finally:
+            batched.fused_pass = pass_fn
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        cubes[name] = d
+        print(f"[SV path] {SV_SAMPLING} sampling iterations from the warmed state, "
+              f"{name} pass: wall {wall:.3f} s, {sinfo.n_inner_trips['sampling']} "
+              f"trips, {sinfo.n_outer_trips['sampling']} tier-2 passes, "
+              f"{sinfo.n_syncs['sampling']} syncs; launches {json.dumps(counts)}"
+              f"  [{card}]")
+        if name == "fused":
+            launches["fused_pass"] = counts["fused_pass"]
+    if launches["fused_pass"] <= 0:
+        raise AssertionError("the SV path's fused run never launched fused_pass")
+    d_u, d_f = cubes["unfused"], cubes["fused"]
+    if not bool(torch.isfinite(d_f).all()):
+        raise AssertionError("SV path: draws are not finite")
+    if not torch.equal(d_u, d_f):
+        bad = float((d_u != d_f).any(-1).float().mean())
+        raise AssertionError(f"SV path: the fused pass's draws differ from the "
+                             f"unfused pass's ({bad:.4f} of the chain draws)")
+    print(f"[SV path] draws of the unfused and the fused pass bitwise equal "
+          f"({tuple(d_f.shape)}), all finite  [{card}]")
+
+    # the device-resident cube's ESS, against the host estimator
+    cube = d_f.movedim(0, 1)  # (C, N, D), a view
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ess_dev = effective_sample_size_device_chunked(cube.double())
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    ess_f32 = effective_sample_size_device_chunked(cube)
+    sub = cube[:, :, list(SV_ESS_DIMS)].double().cpu().numpy()
+    t0 = time.perf_counter()
+    ess_host = summary.effective_sample_size([sub[c] for c in range(sub.shape[0])])
+    host_s = time.perf_counter() - t0
+    got = ess_dev[list(SV_ESS_DIMS)].cpu().numpy()
+    rel = float(np.max(np.abs(got - ess_host) / np.abs(ess_host)))
+    rel32 = float((ess_f32.double() - ess_dev).abs().div(ess_dev.abs()).max())
+    print(f"[SV path] device ESS of the cube (float64 on the card, all {dim} "
+          f"dimensions, chunks of 64: {dev_s:.3f} s) against the host estimator "
+          f"on dimensions {list(SV_ESS_DIMS)} ({host_s:.3f} s): max relative "
+          f"difference {rel:.3e} (limit 1e-4); the float32 cube's device ESS "
+          f"differs from float64's by up to {rel32:.3e} (reported only); median "
+          f"ESS {float(ess_dev.median()):.1f}, min {float(ess_dev.min()):.1f}  [{card}]")
+    if rel > 1e-4:
+        raise AssertionError("SV path: device ESS disagrees with the host's")
+
+    # live chains (moved at all) and the hyperparameters' pooled moments
+    hyper = d_f[:, :, :3].movedim(0, 1).double().cpu().numpy()  # (C, N, 3)
+    _, live, _ = parity.chain_autocorr_stats(hyper)
+    h = hyper[live]
+    mu, phi, sigma = h[..., 0], np.tanh(h[..., 1]), np.exp(h[..., 2])
+    print(f"[SV path] live chains (moved in the fused run) {live.mean():.4f} of "
+          f"{SV_CHAINS}; over them: mu {mu.mean():.4f} +- {mu.std():.4f}, phi "
+          f"{phi.mean():.4f} +- {phi.std():.4f}, sigma {sigma.mean():.4f} +- "
+          f"{sigma.std():.4f} (the data's generating values -1, 0.97, 0.25; "
+          f"reported only)  [{card}]")
+    path = {"replay_split_chain": path_replay_ms(card, recording.calls, "SV path"),
+            "fused_pass": path_pass_ms(card, recorded.calls, SV_PASS_EVERY,
+                                       "SV path")}
+    return launches, path
+
+
 def profile_window(card: str) -> None:
     """Device time by kernel over a short run (10 + 10 iterations)."""
     import walnuts_tpu_torch as wtt
@@ -1479,6 +1761,8 @@ def main() -> None:
     kernels[0].update(empty)
     wide = check_fused_pass(card, 101)
     kernels[2].update(ms_d101=wide["ms"], bound_ms_d101=wide["bound_ms"])
+    sv_wide = check_fused_pass(card, 1003, SV_CHAINS)
+    kernels[2].update(ms_d1003=sv_wide["ms"], bound_ms_d1003=sv_wide["bound_ms"])
     for body in ("std_normal", "ill_conditioned_normal", "funnel"):
         check_integrator(card, body)
     kernels.append(check_integrator(card, "logistic_regression"))
@@ -1503,9 +1787,24 @@ def main() -> None:
     launches.update({k: path_launches[k]
                      for k in ("fused_transition", "fused_sample_block")})
     run_transition_ab(card, warmed, classic)
+    # the funnel and SV paths' launches and times under keys of their own
+    extra = {k["name"]: {} for k in kernels}
+    f_launches, f_path = run_funnel_path(card)
+    extra["replay_split_chain"].update(launches_funnel=f_launches["replay_split_chain"],
+                                       path_ms_funnel=f_path["path_ms"],
+                                       path_bound_ms_funnel=f_path["path_bound_ms"])
+    s_launches, s_path = run_sv_path(card)
+    extra["replay_split_chain"].update(
+        launches_sv=s_launches["replay_split_chain"],
+        path_ms_sv=s_path["replay_split_chain"]["path_ms"],
+        path_bound_ms_sv=s_path["replay_split_chain"]["path_bound_ms"])
+    extra["fused_pass"].update(
+        launches_sv=s_launches["fused_pass"],
+        path_ms_sv=s_path["fused_pass"]["path_ms"],
+        path_bound_ms_sv=s_path["fused_pass"]["path_bound_ms"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        k.update(path.get(k["name"], {}))
+        k.update(path.get(k["name"], {}), **extra[k["name"]])
     if args.profile:
         profile_window(card)
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all  [{card}]")
@@ -1516,7 +1815,9 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "matmul_ms",
             "path_ms", "path_bound_ms", "group_warps", "empty_queued_ms",
-            "empty_single_ms", "host_ms", "ms_d101", "bound_ms_d101")
+            "empty_single_ms", "host_ms", "ms_d101", "bound_ms_d101", "ms_d1003",
+            "bound_ms_d1003", "launches_funnel", "path_ms_funnel",
+            "path_bound_ms_funnel", "launches_sv", "path_ms_sv", "path_bound_ms_sv")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

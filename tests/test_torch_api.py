@@ -1,21 +1,26 @@
 """The port's ``walnuts()`` against the JAX package's, end to end (CPU).
 
-Two configurations of the slice: funnel(5) through autograd in float64,
-and the fused logistic regression (``fused=True``, a float32 model under a
-float64 sampler, as in ``tests/test_pallas.py``). Seeds, keys, initial
+The configurations: funnel(5) through autograd in float64, alone and
+with cost-sorted groups, thinning and a dimension subset; the fused
+logistic regression (``fused=True``, a float32 model under a float64
+sampler, as in ``tests/test_pallas.py``); and the stochastic-volatility
+model in float32 under a float64 sampler and in float64 under a float32
+one (``model_dtype``). Seeds, keys, initial
 positions, the initial step-size search, warmup and sampling all follow
 the reference's threefry stream, so the runs are compared chain by chain:
 gradient and failure counts exactly, floats to the stated tolerance.
 Floats drift by summation order and the normals' last ulps (see
 test_torch_prng.py) through 50 iterations of chaotic dynamics; the
 funnel's draws are held to rtol 1e-9 with an absolute floor of 1e-9 for
-draws near zero, the logistic regression's (float32 model) to atol 1e-4.
+draws near zero, the float32 models' (logistic regression, stochastic
+volatility) to atol 1e-4.
 """
 
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +29,9 @@ import torch
 import walnuts_tpu as wt
 import walnuts_tpu_torch as wtt
 from walnuts_tpu.models import funnel as jax_funnel
+from walnuts_tpu.models import stochastic_volatility as jax_sv
 from walnuts_tpu.ops.pallas_kernels import logistic_regression_fused as jax_fused
-from walnuts_tpu_torch.models import funnel
+from walnuts_tpu_torch.models import funnel, stochastic_volatility
 from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
 
 
@@ -33,10 +39,11 @@ def _stack(outputs):
     return np.stack([np.asarray(c) for c in outputs])
 
 
-def _run_both(jlogp, tlogp, **kw):
+def _run_both(jlogp, tlogp, jax_kw=None, torch_kw=None, **kw):
     kw = dict(return_info=True, save_inv_metric=True, **kw)
-    jo, ji = wt.walnuts(jlogp, dtype=jnp.float64, **kw)
-    to, ti = wtt.walnuts(tlogp, dtype=torch.float64, device="cpu", **kw)
+    jo, ji = wt.walnuts(jlogp, dtype=jnp.float64, **kw, **(jax_kw or {}))
+    to, ti = wtt.walnuts(tlogp, dtype=torch.float64, device="cpu", **kw,
+                         **(torch_kw or {}))
     return jo, ji, to, ti
 
 
@@ -92,18 +99,113 @@ def test_outputs_and_info_shape():
     assert info.n_syncs["sampling"] >= info.n_inner_trips["sampling"]
 
 
+_GROUPS_KW = dict(num_params=5, num_chains=4, seed=11, min_warmup_iter=2,
+                  max_warmup_iter=2, min_sampling_iter=4, max_sampling_iter=4,
+                  block_size=2, thin=2, keep_dims=(0, 2))
+
+
+@pytest.fixture(scope="module")
+def funnel_groups():
+    """funnel(5) in 2 cost-sorted groups (re-sorted every block of 2) with
+    thinning and a dimension subset: the reference's run, the port's, and
+    the port's in one group."""
+    jo, ji, to, ti = _run_both(jax_funnel(5)[0], funnel(5)[0], batched_groups=2,
+                               **_GROUPS_KW)
+    one, i1 = wtt.walnuts(funnel(5)[0], dtype=torch.float64, device="cpu",
+                          return_info=True, **_GROUPS_KW)
+    return jo, ji, to, ti, one, i1
+
+
+def test_groups_thin_keep_dims_match_reference(funnel_groups):
+    """Groups in warmup and sampling, thinning and a dimension subset: the
+    draws kept are the reference's, the counts exact."""
+    jo, ji, to, ti, _, _ = funnel_groups
+    _assert_counts_equal(ji, ti)
+    assert _stack(to).shape == (4, 2, 2)
+    np.testing.assert_allclose(_stack(to), _stack(jo), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose([c.warmup.stepsize for c in to],
+                               [c.warmup.stepsize for c in jo], rtol=1e-9)
+
+
+def test_groups_are_bitwise_on_funnel(funnel_groups):
+    """Groups only schedule: on a model without a matrix product the draws
+    and gradient counts of 1 and 2 groups are bitwise equal."""
+    _, _, two, i2, one, i1 = funnel_groups
+    np.testing.assert_array_equal(_stack(one), _stack(two))
+    np.testing.assert_array_equal(i1.n_grads, i2.n_grads)
+    assert i2.n_blocks == i1.n_blocks
+
+
+def test_sv_model_dtype_matches_reference():
+    """The stochastic-volatility model in float32 under a float64 sampler
+    (precision islands): counts exact; draws to atol 1e-4, the float32
+    model's own tolerance in this file. At 4 + 4 iterations the JAX
+    package counts one non-finite step more on one chain at equal gradient
+    counts: its jitted float32 model is NaN where tanh saturates, the
+    port's finite (test_torch_targets.py::
+    test_sv_f32_finite_where_tanh_saturates)."""
+    jo, ji, to, ti = _run_both(
+        jax_sv(13)[0], stochastic_volatility(13, device="cpu")[0], num_params=16,
+        num_chains=4, seed=5, init_radius=0.2, min_warmup_iter=6,
+        max_warmup_iter=6, min_sampling_iter=6, max_sampling_iter=6,
+        jax_kw=dict(model_dtype=jnp.float32), torch_kw=dict(model_dtype=torch.float32))
+    _assert_counts_equal(ji, ti)
+    draws = _stack(to)
+    assert draws.dtype == np.float64 and np.isfinite(draws).all()
+    np.testing.assert_allclose(draws, _stack(jo), atol=1e-4)
+
+
+def test_sv_wide_model_dtype_matches_reference(monkeypatch):
+    """The stochastic-volatility model in float64 under a float32 sampler:
+    the log densities stay float64 (the saved warmup's), the draws are
+    float32, and the run is the reference's chain by chain (counts exact,
+    floats to atol 1e-4). A trajectory's direction bit compares a uniform
+    of the canonical float width with 0.5 in the reference: float64 under
+    x64 (this test session), float32 without it (its TPU configuration).
+    The port compares a uniform of the sampler's dtype, so the reference
+    is run here with the float32 comparison."""
+    bernoulli = jax.random.bernoulli
+    monkeypatch.setattr(jax.random, "bernoulli", lambda key, p=0.5, shape=None:
+                        bernoulli(key, jnp.float32(p), shape))
+    kw = dict(num_params=16, num_chains=4, seed=5, init_radius=0.2,
+              min_warmup_iter=4, max_warmup_iter=4, min_sampling_iter=4,
+              max_sampling_iter=4, save_warmup=True, return_info=True)
+    jo, ji = wt.walnuts(jax_sv(13)[0], dtype=jnp.float32, model_dtype=jnp.float64, **kw)
+    to, ti = wtt.walnuts(stochastic_volatility(13, device="cpu")[0],
+                         dtype=torch.float32, model_dtype=torch.float64,
+                         device="cpu", **kw)
+    _assert_counts_equal(ji, ti)
+    draws = _stack(to)
+    assert draws.dtype == np.float32 and np.isfinite(draws).all()
+    np.testing.assert_allclose(draws, _stack(jo), atol=1e-4)
+    lps = np.stack([c.warmup.warmup_logps for c in to])
+    assert lps.dtype == np.float64 and np.isfinite(lps).all()
+    np.testing.assert_allclose(lps, np.stack([c.warmup.warmup_logps for c in jo]),
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("batched_groups", 2),
-    ("model_dtype", torch.float32), ("checkpoint_dir", "ckpt"),
+    ("mesh", object()), ("checkpoint_dir", "ckpt"),
     ("checkpoint_every", 5), ("checkpoint_keep_last_n", 2), ("resume", False),
-    ("thin", 2),
-    ("keep_dims", [0]), ("bf16_ends", True), ("flatten", True),
+    ("bf16_ends", True), ("flatten", True),
     ("chain_groups", 2), ("profile_dir", "prof"),
     ("min_latched", 1), ("defer_splits", False),
 ])
 def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match=option):
         wtt.walnuts(funnel(3)[0], num_params=3, device="cpu", **{option: value})
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(batched=False, batched_groups=2), "batched_groups requires batched"),
+    (dict(num_chains=5, batched_groups=2), "must divide by batched_groups"),
+    (dict(thin=0), "thin"),
+    (dict(thin=4, block_size=10), "divide block_size"),
+])
+def test_reference_refusals(kw, match):
+    kw = dict(dict(num_chains=4), **kw)
+    with pytest.raises(ValueError, match=match):
+        wtt.walnuts(funnel(3)[0], num_params=3, device="cpu", **kw)
 
 
 def test_unknown_option_is_a_type_error():
@@ -116,7 +218,8 @@ def test_import_loads_no_jax():
         "import sys, walnuts_tpu_torch, walnuts_tpu_torch.convert, "
         "walnuts_tpu_torch.ops.logreg_fused, walnuts_tpu_torch.ops._cuda, "
         "walnuts_tpu_torch.ops.integrator, walnuts_tpu_torch.ops.fused_pass, "
-        "walnuts_tpu_torch.models.kernels\n"
+        "walnuts_tpu_torch.models.kernels, walnuts_tpu_torch.models.targets, "
+        "walnuts_tpu_torch.summary_device, walnuts_tpu_torch.parity\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'walnuts_tpu'"
         " or m.startswith('walnuts_tpu.'))\n"

@@ -36,7 +36,19 @@ entry on one of 30000). Their logistic-regression chains are also run, on
 the group of warps a chain that each entry point takes, at chain counts
 below, at and above a multiple of the card's warps, and must repeat bit
 for bit from launch to launch and from one chain order to the other.
+
+The bench's other configurations: the stochastic-volatility and
+eight-schools posteriors at the distribution level against the native C++
+sampler's draws (``tests/data/native_*_draws.npz``), by the JAX package's
+protocol and KS thresholds (``tests/test_native_parity.py``: float64,
+``keep_dims``, SV conditioned on the chains that moved; SV's only with
+``WALNUTS_TORCH_SV_PARITY=1``, as it outlasts a card call today); funnel(101) x
+4096 with 1 and 4 cost-sorted groups bit for bit; and the fused pass at
+D = 1003 on lane states of a run from a warmed stochastic-volatility
+state, against plain by the smoke's criterion.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -718,3 +730,190 @@ def test_normal_draws_without_a_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got, want)
+
+
+# --- the funnel and stochastic-volatility configurations ------------------
+
+_DATA = os.path.join(os.path.dirname(__file__), "data")
+# two-sample KS threshold c(alpha) sqrt(1/ne1 + 1/ne2), alpha = 1e-3
+# (tests/test_native_parity.py)
+_KS_C = float(np.sqrt(-np.log(0.0005) / 2.0))
+
+
+def _pooled_neff(draws_cnd, dim):
+    from walnuts_tpu_torch.summary import effective_sample_size
+
+    return float(effective_sample_size(
+        [draws_cnd[c, :, dim:dim + 1] for c in range(draws_cnd.shape[0])])[0])
+
+
+def _ks(a, b):
+    a, b = np.sort(a), np.sort(b)
+    grid = np.concatenate([a, b])
+    ca = np.searchsorted(a, grid, side="right") / a.size
+    cb = np.searchsorted(b, grid, side="right") / b.size
+    return float(np.max(np.abs(ca - cb)))
+
+
+def _ks_check(native, ours, dim, label):
+    ne_n, ne_o = _pooled_neff(native, dim), _pooled_neff(ours, dim)
+    d = _ks(native[:, :, dim].ravel(), ours[:, :, dim].ravel())
+    thresh = _KS_C * np.sqrt(1.0 / ne_n + 1.0 / ne_o)
+    assert d < thresh, (f"{label}: KS={d:.4f} >= {thresh:.4f} "
+                        f"(n_eff native={ne_n:.0f}, ours={ne_o:.0f})")
+
+
+def _run_port(model, dim, num_draws, seed, num_chains, num_warmup, device):
+    """tests/test_native_parity.py's protocol: float64, halvings 8, block
+    100, the first ``dim`` dimensions kept."""
+    import walnuts_tpu_torch as wtt
+
+    logp, D = model
+    outs = wtt.walnuts(
+        logp, num_params=D, num_chains=num_chains, seed=seed, device=device,
+        min_warmup_iter=num_warmup, max_warmup_iter=num_warmup,
+        min_sampling_iter=num_draws, max_sampling_iter=num_draws,
+        block_size=100, max_step_halvings=8, dtype=torch.float64,
+        keep_dims=tuple(range(dim)) if dim < D else None)
+    return np.stack([np.asarray(o) for o in outs])  # (C, n, dim)
+
+
+@pytest.fixture(scope="module")
+def sv_native_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from walnuts_tpu_torch.models import stochastic_volatility
+
+    native = np.load(f"{_DATA}/native_sv_draws.npz")["draws"].astype(np.float64)
+    ours = _run_port(stochastic_volatility(device="cuda"), 3, 2000, 654, 32, 200,
+                     "cuda")
+    # condition both sides on the chains that moved (radius-2 inits leave
+    # about half the SV chains stuck from birth in both implementations)
+    live = lambda d: d[np.any(np.diff(d[:, :, 0], axis=1) != 0.0, axis=1)]
+    return live(native), live(ours)
+
+
+@pytest.fixture(scope="module")
+def es_native_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from walnuts_tpu_torch.models import eight_schools
+
+    native = np.load(f"{_DATA}/native_eight_schools_draws.npz")["draws"].astype(
+        np.float64)
+    return native, _run_port(eight_schools(device="cuda"), 10, 2000, 321, 16, 400,
+                             "cuda")
+
+
+@pytest.mark.skipif(
+    not os.environ.get("WALNUTS_TORCH_SV_PARITY"),
+    reason="32 chains x 2200 iterations of SV(1003) in float64 ran past 45 min "
+    "on an H100 with the host-driven trip (~6-7 ms a trip); set "
+    "WALNUTS_TORCH_SV_PARITY=1 to run it, once device-side loop control "
+    "(ROADMAP.md Queue 1 item 5) makes it fit a call")
+@pytest.mark.parametrize("dim,label", [(0, "mu"), (1, "phi_raw"), (2, "log_sigma")])
+def test_sv_native_parity(sv_native_pair, dim, label):
+    """The SV hyperparameters' marginals over the live cohort against the
+    native C++ sampler's draws (the KS protocol of the JAX package)."""
+    native, ours = sv_native_pair
+    assert native.shape[0] >= 4 and ours.shape[0] >= 4, "too few live chains"
+    _ks_check(native, ours, dim, f"sv {label}")
+
+
+@pytest.mark.parametrize("dim,label", [(0, "mu"), (1, "log_tau")])
+def test_eight_schools_native_parity(es_native_pair, dim, label):
+    native, ours = es_native_pair
+    _ks_check(native, ours, dim, f"eight_schools {label}")
+
+
+def test_eight_schools_native_effect_tails(es_native_pair):
+    """School 1's effect mu + tau z1: quantiles within the native run's
+    own half-against-half noise."""
+    native, ours = es_native_pair
+    effect = lambda d: d[:, :, 0] + np.exp(d[:, :, 1]) * d[:, :, 2]
+    e_n, e_o = effect(native), effect(ours)
+    h1, h2 = e_n[:8].ravel(), e_n[8:].ravel()
+    for p in (0.05, 0.5, 0.95):
+        noise = max(abs(np.quantile(h1, p) - np.quantile(h2, p)), 0.05)
+        diff = abs(np.quantile(e_n.ravel(), p) - np.quantile(e_o.ravel(), p))
+        assert diff < 3.0 * noise + 0.15, f"effect q{p}: {diff:.3f} vs {noise:.3f}"
+
+
+def test_batched_groups_bitwise_on_funnel_card(cuda):
+    """funnel(101) x 4096, float32, at a short length (blocks of one
+    iteration, so the groups are re-sorted every iteration): 1 and 4
+    cost-sorted groups give the same draws and gradient counts bit for
+    bit."""
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.models import funnel
+
+    kw = dict(num_params=101, num_chains=4096, seed=29, device="cuda",
+              dtype=torch.float32, min_warmup_iter=3, max_warmup_iter=3,
+              min_sampling_iter=3, max_sampling_iter=3, block_size=1,
+              runahead=4, max_step_halvings=8, return_info=True)
+    runs = [wtt.walnuts(funnel(101)[0], batched_groups=g, **kw) for g in (1, 4)]
+    (one, i1), (four, i4) = runs
+    a = np.stack([np.asarray(c) for c in one])
+    b = np.stack([np.asarray(c) for c in four])
+    assert np.isfinite(a).all()
+    same = np.all(a == b, axis=(1, 2))
+    assert same.all(), f"draws differ on {int((~same).sum())} of 4096 chains"
+    np.testing.assert_array_equal(i1.n_grads, i4.n_grads)
+
+
+def _clone_tree(t):
+    if isinstance(t, tuple):
+        return type(t)(*(_clone_tree(x) for x in t))
+    return t.clone()
+
+
+def test_fused_pass_kernel_on_warmed_sv_state(cuda):
+    """Kernel 4 at D = 1003 on lane states of a sampling run from a warmed
+    stochastic-volatility state (256 chains, 30 warmup iterations): against
+    plain on every lane with the smoke's criterion (integers, flags and keys
+    equal, floats within 1e-3)."""
+    from walnuts_tpu_torch.core import batched
+    from walnuts_tpu_torch.models import stochastic_volatility
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+    from walnuts_tpu_torch.parallel.runtime import run_sampling, run_warmup
+
+    c = 256
+    lg = make_logp_grad(stochastic_volatility(device="cuda")[0])
+    wcfg = WarmupConfig(min_iter=30, max_iter=30, block_size=30)
+    scfg = SamplingConfig(min_iter=10, max_iter=10, block_size=10,
+                          max_step_halvings=8)
+    keys = prng.fold_in(prng.key(8, cuda), torch.arange(c, device=cuda))
+    theta = 0.5 * prng.normal(prng.key(9, cuda), (c, 1003), torch.float32)
+    ws = init_warmup_state(keys, theta, torch.ones_like(theta),
+                           torch.full((c,), 0.05, device=cuda), wcfg, scfg)
+    ws = run_warmup(lg, ws, wcfg, scfg, tier2_every=12)[0]
+    kept, calls, real = [], [0], batched.fused_pass
+
+    def keep(s, *args, **kwargs):
+        if calls[0] % 7 == 0 and len(kept) < 6:  # launches 0, 7, ..., 35
+            kept.append((_clone_tree(s), args))
+        calls[0] += 1
+        return real(s, *args, **kwargs)
+
+    batched.fused_pass = keep
+    try:
+        run_sampling(lg, init_sample_state(ws), freeze_params(ws), scfg,
+                     runahead=8, tier2_every=12, pallas_pass=True)
+    finally:
+        batched.fused_pass = real
+    assert kept
+    for s, (step, inv_mass, min_micro, cap, R, max_depth, out) in kept:
+        runs = []
+        for fn in (fp.fused_pass, fp.fused_pass_plain):
+            st, o = _clone_tree(s), tuple(torch.zeros_like(x) for x in out)
+            fn(st, step, inv_mass, min_micro, cap, R, max_depth, o)
+            runs.append([fp.lane_field(st, n) for n in fp.RW_FIELDS] + list(o))
+        torch.cuda.synchronize()
+        for name, k, w in zip(fp.RW_FIELDS + fp.BANK, *runs):
+            if k.is_floating_point():
+                assert torch.equal(torch.isfinite(k), torch.isfinite(w)), name
+                both = torch.isfinite(k)
+                if both.any():
+                    assert float((k - w)[both].abs().max()) <= 1e-3, name
+            else:
+                assert torch.equal(k, w), name

@@ -7,9 +7,12 @@ JAX package stays as it is and is the reference; this package imports no
 JAX.
 
 Ported so far: the batched-native ``walnuts()`` path (asynchronous
-adaptive warmup and sampling on one device) and the classic per-draw path
-(``batched=False``, ``integrator=``), four targets, the diagnostics
-(``summary``), and the reference's six kernels — the deferred threefry
+adaptive warmup and sampling on one device, with ``batched_groups``,
+``model_dtype``, ``thin`` and ``keep_dims``) and the classic per-draw path
+(``batched=False``, ``integrator=``), the reference's nine targets
+(``models``), the diagnostics on the host (``summary``) and on the device
+(``summary_device``), the tight parity statistics (``parity``), and the
+reference's six kernels — the deferred threefry
 key-split replay (``csrc/replay.cu``), the fused logistic-regression value
 and gradient (``csrc/logreg.cu``), the fused tier-2 pass
 (``csrc/fused_pass.cu``), the fused leapfrog integrator

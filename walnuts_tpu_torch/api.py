@@ -35,7 +35,13 @@ from walnuts_tpu_torch.ops.math import (
     make_logp_grad,
     sanitize_logp_grad,
 )
-from walnuts_tpu_torch.parallel.runtime import RunInfo, run_sampling, run_warmup
+from walnuts_tpu_torch.parallel.runtime import (
+    RunInfo,
+    _refuse_groups,
+    _refuse_thin,
+    run_sampling,
+    run_warmup,
+)
 from walnuts_tpu_torch.utils.output import (
     WalnutsOutputArray,
     WarmupInfo,
@@ -46,14 +52,10 @@ from walnuts_tpu_torch.utils.output import (
 # select the ported behaviour, and what a user must know otherwise
 _NOT_PORTED = {
     "mesh": ((None,), "multi-device chain sharding (ROADMAP.md Queue 1, multi-GPU)"),
-    "batched_groups": ((1,), "cost-sorted chain groups (ROADMAP.md Queue 1)"),
-    "model_dtype": ((None,), "precision islands (ROADMAP.md Queue 1)"),
     "checkpoint_dir": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
     "checkpoint_every": ((1,), "checkpoint and resume (ROADMAP.md Queue 1)"),
     "checkpoint_keep_last_n": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
     "resume": ((True,), "checkpoint and resume (ROADMAP.md Queue 1)"),
-    "thin": ((1,), "thinning (ROADMAP.md Queue 1)"),
-    "keep_dims": ((None,), "dimension subsets (ROADMAP.md Queue 1)"),
     "bf16_ends": ((False,), "bfloat16 merge-stack endpoints (ROADMAP.md Queue 1)"),
     "flatten": ((False,), "the flattened classic scheduler (ROADMAP.md Queue 1)"),
     "chain_groups": ((1,), "classic chain groups (ROADMAP.md Queue 1)"),
@@ -109,6 +111,7 @@ def walnuts(
     save_warmup: bool = False,
     refresh: int = 0,
     dtype: Optional[torch.dtype] = None,
+    model_dtype: Optional[torch.dtype] = None,
     device="cuda",
     adapt_init_step: bool = True,
     block_size: int = 25,
@@ -119,6 +122,9 @@ def walnuts(
     runahead: int = 8,
     tier2_every: int = 6,
     warmup_tier2_every: Optional[int] = None,
+    batched_groups: int = 1,
+    thin: int = 1,
+    keep_dims=None,
     **unported,
 ) -> Union[List[WalnutsOutputArray], Tuple[List[WalnutsOutputArray], RunInfo]]:
     """Sample from a batched PyTorch log density with adaptive WALNUTS.
@@ -129,6 +135,11 @@ def walnuts(
     - ``device``: where the chains live and every kernel runs
       (default ``"cuda"``; pass ``"cpu"`` to run the plain versions).
     - ``dtype``: the sampler's float dtype (default ``torch.float32``).
+    - ``model_dtype``: evaluate the model in this dtype while positions,
+      momenta and adaptation stay in ``dtype``. A narrower model has its
+      value and gradient cast up; a wider one keeps its value wide (the
+      scheduler carries its log-density fields in the value's dtype) and
+      returns its gradient in ``dtype``.
     - ``fused``: ``logp`` already returns ``(log density, gradient)``.
     - ``batched``: the batched-native scheduler (True) or the classic
       per-draw path (False), whose draws are the same per chain. ``None``
@@ -140,6 +151,12 @@ def walnuts(
     - ``runahead``/``tier2_every``: sampling's run-ahead depth and tier-2
       cadence; ``warmup_tier2_every`` (default 12) is warmup's cadence;
       warmup's run-ahead is 4, as in the reference.
+    - ``batched_groups``: sort the chains by cost every block and run
+      that many groups one after the other, in warmup and sampling
+      (batched only; must divide ``num_chains``).
+    - ``thin``: keep every ``thin``-th sampling draw (must divide
+      ``block_size``); ``keep_dims``: keep only these dimensions of each
+      draw. The sampler itself advances every iteration in every dimension.
 
     Options of the reference that the port does not have yet raise
     ``NotImplementedError`` when set to anything but their default.
@@ -167,6 +184,9 @@ def walnuts(
     if num_chains < 1:
         raise ValueError(
             f"num_chains must be positive; found num_chains = {num_chains}")
+    # the reference raises these at the first block; before any work here
+    _refuse_groups(batched, batched_groups, num_chains)
+    _refuse_thin(thin, block_size)
     if num_params is None:
         if inits is None:
             raise ValueError("must specify at least one of num_params or inits")
@@ -180,6 +200,19 @@ def walnuts(
     base_key = prng.key(seed, device)
     chain_ids = np.arange(id, id + num_chains)
     chain_keys = prng.fold_in(base_key, torch.as_tensor(chain_ids, device=device))
+
+    if model_dtype is not None and model_dtype != dtype:
+        # precision islands: the model runs in model_dtype; its value is
+        # cast to the wider of the two dtypes and its gradient to dtype
+        # (autograd casts it back through the input's cast)
+        user_logp, value_dtype = logp, torch.promote_types(dtype, model_dtype)
+        if fused:
+            def logp(theta):
+                lp, grad = user_logp(theta.to(model_dtype))
+                return lp.to(value_dtype), grad.to(dtype)
+        else:
+            def logp(theta):
+                return user_logp(theta.to(model_dtype)).to(value_dtype)
 
     if fused:
         def logp_grad(theta):
@@ -290,17 +323,20 @@ def walnuts(
         save_warmup=save_warmup, progress=progress, batched=batched,
         integrator=integrator,
         tier2_every=12 if warmup_tier2_every is None else warmup_tier2_every,
+        batched_groups=batched_groups,
     )
     params = freeze_params(wstate)
     if info.interrupted:
-        draws = np.zeros((0, num_chains, num_params))
+        out_dim = num_params if keep_dims is None else len(keep_dims)
+        draws = np.zeros((0, num_chains, out_dim))
     else:
         sstate = init_sample_state(wstate)
         _, draws_t, _, info = run_sampling(
             logp_grad, sstate, params, sampling_cfg, info=info,
             progress=progress, on_r_hat=on_r_hat, batched=batched,
             integrator=integrator, runahead=runahead,
-            tier2_every=tier2_every,
+            tier2_every=tier2_every, batched_groups=batched_groups,
+            thin=thin, keep_dims=keep_dims,
         )
         draws = draws_t.cpu().numpy()
     if warmup_draws is not None:

@@ -409,7 +409,8 @@ def make_batched_warmup_block(logp_grad: LogpGradFn, sampling_cfg,
     boundary and restarts at once, with ``runahead`` draws of run-ahead.
 
     Returns ``warmup_block(state: WarmupState, n, out=None) -> (state',
-    BatchedBlockResult)``; ``out`` as in ``sample_block``.
+    BatchedBlockResult)``; ``out`` as in ``sample_block``, or a function
+    of the log density's dtype that returns it.
     """
     from walnuts_tpu_torch.core.sampler import WarmupState
 
@@ -428,6 +429,8 @@ def make_batched_warmup_block(logp_grad: LogpGradFn, sampling_cfg,
         # one fresh evaluation per block (counted); within the block the
         # selected state's logp/grad ride the lane state
         logp0, grad0 = logp_grad(ws.theta)
+        if callable(out):
+            out = out(logp0.dtype)
         inv_mass = mass_estimator_inv_mass(ws.mass)
         step = adam_step_size(ws.adam)
         min_micro = min_micro_estimate(ws.min_micro)

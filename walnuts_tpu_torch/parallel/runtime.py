@@ -13,11 +13,19 @@ iterations as the reference (``_next_boundary``). Sampling draws are
 written in place into ONE preallocated device tensor, and reach the host
 only when the caller asks for them.
 
-Not ported yet (ROADMAP.md): a device mesh, ``batched_groups > 1``, the
-classic path's ``flatten`` and ``chain_groups``, checkpointing, ``thin``
-and ``keep_dims``. The reference's automatic block-size cap
-(``_BlockBudget``) exists to keep one jitted TPU program under a worker's
-time limit; eager blocks here have no such limit, so it is not ported.
+``batched_groups > 1`` sorts the chains every block by their cost (the
+adapted ``min_micro / step`` before the first block, the realized
+gradient count of the block before after it) and runs the groups one
+after the other, each on its own columns of the draws. ``thin`` keeps
+the last draw of every ``thin`` and ``keep_dims`` a subset of the
+dimensions; the preallocated tensor then has only those rows and
+columns.
+
+Not ported yet (ROADMAP.md): a device mesh, the classic path's
+``flatten`` and ``chain_groups``, and checkpointing. The reference's
+automatic block-size cap (``_BlockBudget``) exists to keep one jitted TPU
+program under a worker's time limit; eager blocks here have no such
+limit, so it is not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +38,11 @@ import numpy as np
 import torch
 
 from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
-from walnuts_tpu_torch.core.adapt import mass_estimator_inv_mass
+from walnuts_tpu_torch.core.adapt import (
+    adam_step_size,
+    mass_estimator_inv_mass,
+    min_micro_estimate,
+)
 from walnuts_tpu_torch.core.batched import (
     make_batched_sample_block,
     make_batched_warmup_block,
@@ -138,6 +150,129 @@ def _refuse_batched_integrator(batched: bool, integrator) -> None:
             "(pass batched=False to use it)")
 
 
+def _refuse_groups(batched: bool, batched_groups: int, num_chains: int) -> None:
+    if batched_groups > 1 and not batched:
+        raise ValueError("batched_groups requires batched=True")
+    if batched_groups > 1 and num_chains % batched_groups:
+        raise ValueError(f"num_chains ({num_chains}) must divide by "
+                         f"batched_groups ({batched_groups})")
+
+
+def _refuse_thin(thin: int, block_size: int) -> None:
+    if thin < 1 or block_size % thin:
+        raise ValueError(f"thin ({thin}) must be >= 1 and divide block_size "
+                         f"({block_size})")
+
+
+def _tree_take(tree, idx: torch.Tensor):
+    """The chains ``idx`` of a NamedTuple of chain-batched tensors."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_take(t, idx) for t in tree))
+    return tree.index_select(0, idx)
+
+
+def _tree_put(parts, num_chains: int):
+    """The chain-batched tree whose chains ``idx`` are ``sub``, for every
+    ``(idx, sub)`` of ``parts`` (the groups cover every chain once)."""
+    sub0 = parts[0][1]
+    if isinstance(sub0, tuple):
+        return type(sub0)(*(_tree_put([(i, s[k]) for i, s in parts], num_chains)
+                            for k in range(len(sub0))))
+    out = torch.empty((num_chains,) + sub0.shape[1:], dtype=sub0.dtype,
+                      device=sub0.device)
+    for idx, sub in parts:
+        out.index_copy_(0, idx, sub)
+    return out
+
+
+def _groups(cost: torch.Tensor, batched_groups: int):
+    """The chains of each group: the stable ascending sort of ``cost``
+    (float64, on the device) cut into ``batched_groups`` equal parts."""
+    order = torch.argsort(cost, stable=True)
+    cg = order.shape[0] // batched_groups
+    return [order[g * cg:(g + 1) * cg] for g in range(batched_groups)]
+
+
+def _run_grouped(block, state, cost: torch.Tensor, batched_groups: int):
+    """One block of the chains in ``batched_groups`` groups by ascending
+    ``cost``, one group after the other: ``block(sub, idx)`` runs the
+    chains ``idx`` from their state ``sub`` and returns their new state
+    and the block's result. Returns the state in the caller's chain
+    order, the summed counts, and the next block's cost: each chain's
+    gradients in this block."""
+    parts, counts = [], TripCounts()
+    for idx in _groups(cost, batched_groups):
+        sub, res = block(_tree_take(state, idx), idx)
+        parts.append((idx, sub))
+        counts += TripCounts(res.n_inner_trips, res.n_outer_trips, res.n_syncs)
+    new = _tree_put(parts, state.theta.shape[0])
+    return new, counts, (new.n_grads - state.n_grads).double()
+
+
+class _DrawSink:
+    """Where sampling draws go: ONE tensor preallocated on the device for
+    ``max_iter // thin`` rows of ``C`` chains and the kept dimensions, its
+    log densities (in the dtype of the model's value) made at the first
+    block. With no thinning, no dimension subset and one group, a block
+    writes its draws in place into its rows; otherwise into a block
+    buffer of its chains, whose selected rows and columns are copied into
+    the chains' columns (``commit``)."""
+
+    def __init__(self, max_iter: int, C: int, D: int, dtype, dev, thin: int,
+                 keep_dims, direct: bool):
+        self.thin, self.direct, self.C, self.D = thin, direct, C, D
+        self.max_rows = max_iter // thin
+        self.keep = (None if keep_dims is None else
+                     torch.as_tensor([int(k) for k in keep_dims], dtype=torch.long,
+                                     device=dev))
+        width = D if keep_dims is None else len(keep_dims)
+        self.draws = torch.empty((self.max_rows, C, width), dtype=dtype, device=dev)
+        self.logps = None
+        self.rows = 0
+        self._buf = None
+
+    def out(self, n: int, lanes: int, lp_dtype):
+        """The ``out`` of a block of ``n`` draws of ``lanes`` chains."""
+        if self.logps is None:
+            self.logps = torch.empty((self.max_rows, self.C), dtype=lp_dtype,
+                                     device=self.draws.device)
+        r = self.rows
+        if self.direct:
+            return self.draws[r:r + n], self.logps[r:r + n]
+        if self._buf is None or self._buf[0].shape[0] < n or self._buf[0].shape[1] != lanes:
+            self._buf = (torch.empty((n, lanes, self.D), dtype=self.draws.dtype,
+                                     device=self.draws.device),
+                         torch.empty((n, lanes), dtype=lp_dtype,
+                                     device=self.draws.device))
+        return self._buf[0][:n], self._buf[1][:n]
+
+    def commit(self, out, idx: Optional[torch.Tensor]) -> None:
+        """Copy the selected rows and columns of the block buffer ``out``
+        into the columns ``idx`` (all chains for None)."""
+        if self.direct:
+            return
+        t = self.thin
+        d, lp = out[0][t - 1::t], out[1][t - 1::t]
+        if self.keep is not None:
+            d = d.index_select(2, self.keep)
+        rows = slice(self.rows, self.rows + d.shape[0])
+        if idx is None:
+            self.draws[rows].copy_(d)
+            self.logps[rows].copy_(lp)
+        else:
+            self.draws[rows].index_copy_(1, idx, d)
+            self.logps[rows].index_copy_(1, idx, lp)
+
+    def advance(self, n: int) -> None:
+        self.rows += n // self.thin
+
+    def result(self):
+        if self.logps is None:
+            self.logps = torch.empty((self.max_rows, self.C), dtype=self.draws.dtype,
+                                     device=self.draws.device)
+        return self.draws[:self.rows], self.logps[:self.rows]
+
+
 def run_warmup(
     logp_grad: LogpGradFn,
     state: WarmupState,
@@ -151,6 +286,7 @@ def run_warmup(
     integrator=None,
     runahead: int = 4,
     tier2_every: int = 6,
+    batched_groups: int = 1,
 ) -> Tuple[WarmupState, Optional[torch.Tensor], Optional[torch.Tensor], RunInfo]:
     """Adaptive warmup with block-synchronous early stopping.
 
@@ -161,13 +297,20 @@ def run_warmup(
     adaptation reached so far.
 
     ``batched=True`` is the asynchronous batched-native warmup
-    (``runahead``, ``tier2_every``). ``batched=False`` is the classic
+    (``runahead``, ``tier2_every``); ``batched_groups > 1`` sorts the
+    lanes into that many cost groups every block (the adapted
+    ``min_micro / step`` first, then each lane's realized gradient count
+    of the block before) and runs the groups one after the other. Both are
+    scheduling only: a lane's draws and adaptation do not change on
+    models without a matrix product. ``batched=False`` is the classic
     warmup: every iteration is one transition of all chains in lock step,
     adapted at the draw boundary, and ``integrator`` (see
     ``ops.integrator``) may run each attempt's leapfrog steps. An
     integrator with ``batched=True`` raises ``ValueError``.
     """
     _refuse_batched_integrator(batched, integrator)
+    C, D = state.theta.shape
+    _refuse_groups(batched, batched_groups, C)
     if batched:
         warmup_block = make_batched_warmup_block(
             logp_grad, sampling_cfg, runahead=runahead, tier2_every=tier2_every)
@@ -176,23 +319,32 @@ def run_warmup(
                                        integrator=integrator)
 
         def warmup_block(ws: WarmupState, n: int, out=None):
-            counts = TripCounts()
+            # out: a function of the log density's dtype that returns the
+            # block's (draws, logps)
+            counts, buf = TripCounts(), None
             for i in range(n):
                 ws, o = warmup_step(ws)
                 counts += o.counts
                 if out is not None:
-                    out[0][i].copy_(o.theta)
-                    out[1][i].copy_(o.logp)
+                    buf = buf or out(o.logp.dtype)
+                    buf[0][i].copy_(o.theta)
+                    buf[1][i].copy_(o.logp)
             return ws, counts
     info = info or RunInfo()
     dev = state.theta.device
-    C, D = state.theta.shape
-    draws = logps = None
-    if save_warmup:
-        draws = torch.empty((warmup_cfg.max_iter, C, D), dtype=state.theta.dtype,
-                            device=dev)
-        logps = torch.empty((warmup_cfg.max_iter, C), dtype=state.theta.dtype,
-                            device=dev)
+    sink = (_DrawSink(warmup_cfg.max_iter, C, D, state.theta.dtype, dev, 1, None,
+                      direct=batched_groups == 1) if save_warmup else None)
+
+    def run_block(ws: WarmupState, n: int, idx=None):
+        if sink is None:
+            return warmup_block(ws, n)
+        # the log densities are kept in the dtype of the model's value
+        lanes = ws.theta.shape[0]
+        ws, res = warmup_block(ws, n, lambda lp_dtype: sink.out(n, lanes, lp_dtype))
+        sink.commit(sink.out(n, lanes, None), idx)
+        if not sink.direct:  # a row of the buffer the next group writes
+            ws = ws._replace(theta=ws.theta.clone())
+        return ws, res
 
     def check() -> bool:
         mrm, mrs = _warmup_convergence_stats(state)
@@ -202,6 +354,7 @@ def run_warmup(
     t0 = time.perf_counter()
     it = 0
     converged = False
+    cost = None
     if warmup_cfg.min_iter == 0 and warmup_cfg.max_iter > 0:
         converged = check()
     try:
@@ -210,8 +363,17 @@ def run_warmup(
                                         warmup_cfg.block_size,
                                         warmup_cfg.max_iter)
             n = min(warmup_cfg.block_size, next_check - it)
-            out = (draws[it:it + n], logps[it:it + n]) if save_warmup else None
-            state, res = warmup_block(state, n, out)
+            if batched_groups > 1:
+                if cost is None:  # first block: the pre-adaptation cost heuristic
+                    cost = (min_micro_estimate(state.min_micro).double()
+                            / adam_step_size(state.adam).double())
+                state, res, cost = _run_grouped(
+                    lambda sub, idx: run_block(sub, n, idx), state, cost,
+                    batched_groups)
+            else:
+                state, res = run_block(state, n)
+            if sink is not None:
+                sink.advance(n)
             info._count("warmup", res)
             it += n
             if progress is not None:
@@ -225,8 +387,7 @@ def run_warmup(
     info.warmup_iters = it
     info.converged_warmup = converged
     info._fails(state.fails)
-    if save_warmup:
-        draws, logps = draws[:it], logps[:it]
+    draws, logps = sink.result() if save_warmup else (None, None)
     return state, draws, logps, info
 
 
@@ -245,13 +406,30 @@ def run_sampling(
     tier2_every: int = 6,
     pallas_pass: bool = False,
     pass_tile: Optional[int] = None,
+    batched_groups: int = 1,
+    thin: int = 1,
+    keep_dims=None,
 ) -> Tuple[SampleState, torch.Tensor, torch.Tensor, RunInfo]:
     """Fixed-parameter sampling with R-hat early stopping.
 
-    Returns the final state, the draws ``(iters, C, D)`` and their log
-    densities ``(iters, C)`` — slices of one tensor preallocated on the
-    state's device for ``max_iter`` draws and filled in place block by
-    block — and the run info.
+    Returns the final state, the draws ``(iters // thin, C, K)`` and their
+    log densities ``(iters // thin, C)`` — slices of one tensor
+    preallocated on the state's device for ``max_iter // thin`` rows and
+    filled in place block by block — and the run info.
+
+    ``thin > 1`` keeps the last draw of each group of ``thin`` iterations
+    (a block whose length is not a multiple gives ``floor(n / thin)``
+    rows); it must divide ``block_size``. ``keep_dims`` (parameter
+    indices) keeps those dimensions of each draw (``K`` of them; all for
+    None). The sampler still advances every iteration in every dimension,
+    and the R-hat controller sees every log density.
+
+    ``batched_groups > 1`` re-sorts the chains every block by their
+    realized gradient count in the block before (the adapted ``min_micro
+    / step`` before the first) and runs the groups one after the other,
+    so that cheap chains stop waiting for the expensive tail. Draws are
+    bitwise the same per lane on models without a matrix product. The
+    sort stays on the device. Batched only.
 
     ``batched=False`` is the classic sampler: every iteration is one
     transition of all chains in lock step (each pass of its attempt loop
@@ -267,6 +445,15 @@ def run_sampling(
     pass's. Off by default, as in the reference; batched only.
     """
     _refuse_batched_integrator(batched, integrator)
+    C, D = state.theta.shape
+    _refuse_groups(batched, batched_groups, C)
+    _refuse_thin(thin, sampling_cfg.block_size)
+    dev = state.theta.device
+    dtype = state.theta.dtype
+    max_error = torch.tensor(sampling_cfg.max_hamiltonian_error, dtype=dtype,
+                             device=dev)
+    sink = _DrawSink(sampling_cfg.max_iter, C, D, dtype, dev, thin, keep_dims,
+                     direct=thin == 1 and keep_dims is None and batched_groups == 1)
     if batched:
         start_blk, sample_blk = make_batched_sample_block(
             logp_grad,
@@ -278,11 +465,13 @@ def run_sampling(
             pass_tile=pass_tile,
         )
 
-        def run_block(state: SampleState, n: int, out):
+        def run_block(state: SampleState, p: FrozenParams, n: int, idx=None):
             st = start_blk(state.key, state.theta, state.n_grads, state.fails,
-                           params.step_size, params.inv_mass, params.min_micro)
-            res = sample_blk(st, params.step_size, params.inv_mass,
-                             params.min_micro, max_error, n, out=out)
+                           p.step_size, p.inv_mass, p.min_micro)
+            out = sink.out(n, state.theta.shape[0], st.ms_joint.dtype)
+            res = sample_blk(st, p.step_size, p.inv_mass, p.min_micro,
+                             max_error, n, out=out)
+            sink.commit(out, idx)
             # Chan et al. merge of the block's per-lane log-density stats
             # into the running Welford (the classic per-draw statistics)
             lps = res.logps.T  # (C, n)
@@ -293,7 +482,9 @@ def run_sampling(
             delta = mean_b - state.lp_mean
             state = state._replace(
                 key=res.key,
-                theta=res.draws[-1],
+                # a row of the cube, or of a block buffer the next block
+                # (or group) writes
+                theta=res.draws[-1] if sink.direct else res.draws[-1].clone(),
                 # + 1: the block-entry gradient start_blk evaluated
                 n_grads=state.n_grads + res.n_grads_delta + 1,
                 fails=FailStats(*(a + b for a, b in zip(state.fails,
@@ -310,34 +501,38 @@ def run_sampling(
         sample_step = make_sample_step(logp_grad, sampling_cfg,
                                        integrator=integrator)
 
-        def run_block(state: SampleState, n: int, out):
-            counts = TripCounts()
+        def run_block(state: SampleState, p: FrozenParams, n: int, idx=None):
+            counts, out = TripCounts(), None
             for i in range(n):
-                state, res = sample_step(state, params)
+                state, res = sample_step(state, p)
                 counts += res.counts
+                if out is None:
+                    out = sink.out(n, C, res.logp.dtype)
                 out[0][i].copy_(res.theta)
                 out[1][i].copy_(res.logp)
+            sink.commit(out, idx)
             return state, counts
 
     info = info or RunInfo()
-    dev = state.theta.device
-    C, D = state.theta.shape
-    dtype = state.theta.dtype
-    draws = torch.empty((sampling_cfg.max_iter, C, D), dtype=dtype, device=dev)
-    logps = torch.empty((sampling_cfg.max_iter, C), dtype=dtype, device=dev)
-    max_error = torch.tensor(sampling_cfg.max_hamiltonian_error, dtype=dtype,
-                             device=dev)
-
     t0 = time.perf_counter()
     it = 0
     converged = False
+    cost = None
     try:
         while it < sampling_cfg.max_iter and not converged:
             next_check = _next_boundary(it, sampling_cfg.min_iter,
                                         sampling_cfg.block_size,
                                         sampling_cfg.max_iter)
             n = min(sampling_cfg.block_size, next_check - it)
-            state, res = run_block(state, n, (draws[it:it + n], logps[it:it + n]))
+            if batched_groups > 1:
+                if cost is None:  # first block: the adapted per-draw cost
+                    cost = params.min_micro.double() / params.step_size.double()
+                state, res, cost = _run_grouped(
+                    lambda sub, idx: run_block(sub, _tree_take(params, idx), n, idx),
+                    state, cost, batched_groups)
+            else:
+                state, res = run_block(state, params, n)
+            sink.advance(n)
             info._count("sampling", res)
             it += n
             if progress is not None:
@@ -356,7 +551,8 @@ def run_sampling(
     info.converged_sampling = converged
     info.n_grads = state.n_grads.cpu().numpy()
     info._fails(state.fails)
-    return state, draws[:it], logps[:it], info
+    draws, logps = sink.result()
+    return state, draws, logps, info
 
 
 __all__ = ["RunInfo", "run_sampling", "run_warmup"]
