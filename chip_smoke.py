@@ -4,14 +4,15 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
 version at the main path's shapes, then drives six paths of the port on
 adaptive WALNUTS: four on the 25-coefficient logistic regression (1000
-rows) with the fused model kernel, 4096 chains, float32, and two on the
-bench's other models:
+rows) with the fused model kernel, 4096 chains, float32, two on the
+bench's other models, then the checkpoint, host-model, trace and
+command-line entry points (each phase's wall is printed):
 
 - the main path, ``walnuts_tpu_torch.walnuts`` (batched scheduler, 30
   warmup + 30 sampling iterations): the replay and logistic-regression
   kernels must run on it;
 - the fused route: ``run_warmup`` (50 iterations), then ``run_sampling``
-  (50 iterations) twice from the same warmed state, with the unfused
+  (25 iterations) twice from the same warmed state, with the unfused
   tier-2 pass and with ``pallas_pass=True``: the fused-pass kernel must
   run on the second;
 - the classic path: ``walnuts(batched=False, integrator=...)`` (20 + 20
@@ -26,16 +27,33 @@ bench's other models:
   classic A/B's 20 iterations;
 - the funnel path: ``walnuts()`` on funnel(101) x 4096, float32, in 4
   cost-sorted groups (``batched_groups=4``, run-ahead 4, a tier-2 pass every
-  6 trips; 6 + 10 iterations, blocks of 5): the replay must run on it,
+  6 trips; 6 + 5 iterations, blocks of 5): the replay must run on it,
   and theta[0]'s pooled moments must agree with the JAX package's at the
   same configuration (``FUNNEL_REF``);
 - the SV path: ``walnuts()`` on the stochastic-volatility model (D = 1003)
   x 1024, float32 (run-ahead 8, a tier-2 pass every 12 trips, block 50;
-  15 + 3 iterations), then 10 sampling iterations twice from its warmed
+  15 + 3 iterations), then 6 sampling iterations twice from its warmed
   state, with the unfused pass and with ``pallas_pass=True``: the replay
   must run on the first, the fused pass on the second, their draws must be
   bitwise equal, and the device ESS of the draw tensor (on the card,
-  ``summary_device``) must agree with the host estimator's.
+  ``summary_device``) must agree with the host estimator's;
+- the checkpoint path: ``walnuts()`` on the logistic regression x 4096
+  (kernel 2), 10 + 10 iterations in blocks of 5, three times: with no
+  checkpoint, with ``checkpoint_dir`` and crashed after its first sampling
+  block, and resumed: the resumed run's draws, step sizes, inverse metrics
+  and ``n_grads`` must be the first run's bit for bit, and kernels 1 and 2
+  must run;
+- the host-model path: ``walnuts_stan`` on the eight-schools BridgeStan-ABI
+  model (``csrc/abi_models.cpp``, built with ``g++`` with the port's native
+  bridge) x 1024, float64, 30 + 30, against ``walnuts(eight_schools())``
+  at the same seed (0.99 of the chains with equal ``n_grads``, ``mu`` to
+  1e-3 on those), and ``walnuts_pyfunc`` with the C callback of
+  ``csrc/callback_model.c`` (a standard normal, D = 100) x 256: kernel 1
+  must run on both, and the host time of a model call is printed beside
+  the trip's;
+- ``walnuts(profile_dir=...)`` on the logistic regression (5 + 5): the trace
+  must name the replay and logistic-regression kernels; beside it ``python
+  -m walnuts_tpu_torch.cli`` on funnel(25) x 8 in a subprocess.
 
 Each logistic-regression path's draws must be finite, and their pooled
 posterior mean and sd must agree with NumPy references (a Newton MAP, its Laplace sd, and the
@@ -57,7 +75,8 @@ failed phase raises (non-zero exit). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
 route, launches on its logistic-regression path (and on the funnel and SV
 paths: ``launches_funnel``, ``launches_sv``, with the time and bound of a
-launch there), error against its plain version, times and bound (the integrator's and the transition kernels' with their
+launch there; on the checkpoint and host-model paths: ``launches_ckpt``,
+``launches_host_model``), error against its plain version, times and bound (the integrator's and the transition kernels' with their
 logistic-regression body; their three other bodies are checked and printed
 on earlier lines), the logistic-regression kernel's two ``torch.matmul``
 products (``matmul_ms``), the time and bound of a launch on the path
@@ -73,13 +92,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
 SEED = 2026
 CHAINS = 4096
 DIM = 25
@@ -93,7 +115,7 @@ HALVINGS = 8
 # and sampling iterations of each run of the fused route
 MAIN_ITERS = 30
 CLASSIC_ITERS = 20
-ROUTE_ITERS = 50
+ROUTE_ITERS = 25
 # the transition path: draws through the single-transition kernel, launches
 # and draws per launch of the sample-block kernel, draws of each in the A/B
 # beside the classic path, and the energy-error limit of every attempt
@@ -125,21 +147,23 @@ PASS_EVERY = 10
 # cut in length from the bench's 400 + 400 (100 + 100 took 1017 s on the
 # card, host-bound, 6 + 10 174 s, 4 + 10 242 s: the first warmup
 # iterations cost the most, and a shorter warmup leaves sampling less
-# adapted), in blocks of 5 so that the groups are re-sorted by realized
-# cost; theta[0] ~ N(0, 3^2)
+# adapted; 6 + 5 since the smoke drives the host-facing entry points too),
+# in blocks of 5 so that the groups are re-sorted by realized cost;
+# theta[0] ~ N(0, 3^2)
 FUNNEL_DIM = 101
 FUNNEL_WARMUP = 6
-FUNNEL_SAMPLING = 10
+FUNNEL_SAMPLING = 5
 FUNNEL_BLOCK = 5
 FUNNEL_GROUPS = 4
 # theta[0]'s pooled moments from the JAX package at this configuration,
 # seed and lengths, on the CPU with 1024 chains. At these lengths neither
 # package reaches the exact N(0, 3^2) (mean 0, sd 3): the chains have not
 # mixed through the neck, so the exact marginal is reported and these are
-# the check. Seeds 2036, 2037, 2038 gave means 0.9884, 0.9823, 1.0386 and
-# sds 1.3853, 1.4511, 1.4264: the port is held within 0.15 of the mean
-# (about three times that spread) and 10 % of the sd. To recompute, with
-# JAX on the CPU (~50 s a seed):
+# the check. Seeds 2036, 2037, 2038 gave means 0.9794, 0.9850, 1.0403 and
+# sds 1.3632, 1.4441, 1.4122 (at 6 + 10: 0.9884, 0.9823, 1.0386 and
+# 1.3853, 1.4511, 1.4264): the port is held within 0.15 of the mean (2.5
+# times that spread) and 10 % of the sd (1.7 times). To recompute, with
+# JAX on the CPU (~20 s a seed):
 #
 #   import jax; jax.config.update("jax_platforms", "cpu")
 #   import jax.numpy as jnp, numpy as np, chip_smoke as cs, walnuts_tpu as wt
@@ -154,19 +178,34 @@ FUNNEL_GROUPS = 4
 #           max_step_halvings=cs.HALVINGS)
 #       v = np.stack([np.asarray(o)[:, 0] for o in out]).astype(np.float64)
 #       print(seed, v.mean(), v.std())
-FUNNEL_REF = dict(mean=0.9883816999579551, sd=1.385311888597187)
+FUNNEL_REF = dict(mean=0.9793896049363184, sd=1.363240828091224)
 FUNNEL_MEAN_TOL = 0.15
 FUNNEL_SD_TOL = 0.10
+# the checkpoint path: the main path's model and width, its own seed
+CKPT_ITERS = 10
+CKPT_BLOCK = 5
+CKPT_SEED = SEED + 30
+# the host-model path: eight schools through the native Stan bridge against
+# autograd (the reference's parity test at the card's width), and a
+# standard normal through walnuts_pyfunc's C callback
+HOST_CHAINS = 1024
+HOST_ITERS = 30
+HOST_SEED = SEED + 40
+HOST_SHARE = 0.99
+PYFUNC_CHAINS = 256
+PYFUNC_DIM = 100
 # the stochastic-volatility path: the bench's 1000 time steps (D = 1003),
 # 1024 chains, run-ahead 8, a tier-2 pass every 12 trips, block 50, cut in
 # length from the bench's 200 + 200 (30 + 10 took 185 s on the card, 20 + 5
 # 111 s); then SV_SAMPLING iterations twice from the warmed state, the
 # unfused and the fused pass (every SV_PASS_EVERY-th launch of kernel 4
-# kept: ~0.1 GB a copy of the lane state)
+# kept: ~0.1 GB a copy of the lane state); 6, not fewer: at 5 draws a chain
+# the ESS estimator saturates at half the draws, and its device and host
+# versions would agree trivially
 SV_CHAINS = 1024
 SV_WARMUP = 15
 SV_MAIN_SAMPLING = 3
-SV_SAMPLING = 10
+SV_SAMPLING = 6
 SV_PASS_EVERY = 10
 # dimensions whose device ESS is held to the host estimator's: the three
 # hyperparameters and three latent steps
@@ -1694,6 +1733,326 @@ def run_sv_path(card: str) -> tuple:
     return launches, path
 
 
+class _Preempted(Exception):
+    """The crash the checkpoint path stages on purpose."""
+
+
+class _SaveTimer:
+    """Times every call of ``BlockCheckpointer.save``: ``method`` stands
+    in for it on the class."""
+
+    def __init__(self, real):
+        self.calls, self.seconds = 0, 0.0
+
+        def method(ckpt, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(ckpt, *args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        self.method = method
+
+
+def run_checkpoint_path(card: str) -> dict:
+    """``walnuts()`` on the main path's model (kernel 2, ``fused=True``) at
+    CKPT_ITERS + CKPT_ITERS iterations in blocks of CKPT_BLOCK, three
+    times: (a) with no checkpoint; (b) with ``checkpoint_dir``, crashed
+    (an exception) right after its first sampling block is saved; (c)
+    resumed from (b)'s directory. (a) and (c) must be equal bit for bit:
+    draws, step sizes, inverse metrics and ``n_grads``. Returns the
+    launches of kernels 1 and 2 over the three runs."""
+    import shutil
+    import tempfile
+
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+    from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
+
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    kw = dict(fused=True, num_params=dim, num_chains=CHAINS, dtype=torch.float32,
+              seed=CKPT_SEED, device=DEVICE, min_warmup_iter=CKPT_ITERS,
+              max_warmup_iter=CKPT_ITERS, min_sampling_iter=CKPT_ITERS,
+              max_sampling_iter=CKPT_ITERS, block_size=CKPT_BLOCK,
+              max_step_halvings=HALVINGS, save_inv_metric=True, return_info=True)
+
+    def timed(**extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wtt.walnuts(logp_grad, **kw, **extra)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _reset_counts()
+    (plain, info_a), wall_a = timed()
+    directory = tempfile.mkdtemp(prefix="walnuts-ckpt-")
+    real_block, real_save = BlockCheckpointer.block, BlockCheckpointer.save
+    saves = _SaveTimer(real_save)
+    BlockCheckpointer.save = saves.method
+
+    def block_then_crash(ckpt, phase, it, *args, **kwargs):
+        # the process dies right after the first sampling block is saved
+        real_block(ckpt, phase, it, *args, **kwargs)
+        if (phase, it) == ("sampling", CKPT_BLOCK):
+            raise _Preempted()
+
+    try:
+        BlockCheckpointer.block = block_then_crash
+        t0 = time.perf_counter()
+        try:
+            wtt.walnuts(logp_grad, checkpoint_dir=directory, **kw)
+        except _Preempted:
+            wall_b = time.perf_counter() - t0
+        else:
+            raise AssertionError("checkpoint path: the staged crash was not raised")
+        finally:
+            BlockCheckpointer.block = real_block
+        saves_b, save_s_b = saves.calls, saves.seconds
+        (resumed, info_c), wall_c = timed(checkpoint_dir=directory)
+        slot = sum(os.path.getsize(os.path.join(directory, s, "state.pt"))
+                   for s in ("state_a", "state_b")) / 2
+    finally:
+        BlockCheckpointer.save = real_save
+        shutil.rmtree(directory, ignore_errors=True)
+    launches = _counts()
+    for name in ("replay_split_chain", "logreg_value_grad"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the checkpoint path never launched {name}")
+
+    a = np.stack([np.asarray(c) for c in plain], axis=1)
+    c = np.stack([np.asarray(x) for x in resumed], axis=1)
+    if a.shape != (CKPT_ITERS, CHAINS, DIM) or not np.isfinite(a).all():
+        raise AssertionError(f"checkpoint path: bad draws: shape {a.shape}")
+    same = {
+        "draws": np.array_equal(a, c),
+        "step sizes": [x.warmup.stepsize for x in plain]
+        == [x.warmup.stepsize for x in resumed],
+        "inverse metrics": np.array_equal(np.stack([x.warmup.inv_metric for x in plain]),
+                                          np.stack([x.warmup.inv_metric for x in resumed])),
+        "n_grads": np.array_equal(info_a.n_grads, info_c.n_grads),
+    }
+    chains_same = int(np.all(a == c, axis=(0, 2)).sum())
+    print(f"[checkpoint path] logreg({DIM}) x {CHAINS} chains, fused, float32, "
+          f"{CKPT_ITERS} + {CKPT_ITERS} iterations, blocks of {CKPT_BLOCK}: (a) "
+          f"uninterrupted {wall_a:.3f} s; (b) checkpointed, crashed after its "
+          f"first sampling block {wall_b:.3f} s ({saves_b} saves, "
+          f"{save_s_b / saves_b * 1e3:.2f} ms a save, the block's draws and a "
+          f"state slot of {slot / 2**20:.3f} MiB); (c) resumed {wall_c:.3f} s "
+          f"({saves.calls - saves_b} saves, "
+          f"{(saves.seconds - save_s_b) / max(saves.calls - saves_b, 1) * 1e3:.2f} ms "
+          f"a save)  [{card}]")
+    print(f"[checkpoint path] (c) against (a), bit for bit: {json.dumps(same)}; "
+          f"chains with equal draws {chains_same} of {CHAINS}; launches over the "
+          f"three runs {json.dumps(launches)}  [{card}]")
+    if not all(same.values()):
+        raise AssertionError("checkpoint path: the resumed run is not the "
+                             "uninterrupted one bit for bit")
+    return launches
+
+
+class _HostTimer:
+    """Stands in for ``api.host_model``: the models it makes time each
+    call on the host (after a device synchronize, so that earlier device
+    work is not counted)."""
+
+    def __init__(self, real):
+        self.real, self.calls, self.seconds = real, 0, 0.0
+
+    def __call__(self, evaluate):
+        model = self.real(evaluate)
+
+        def timed(theta):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(theta)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        return timed
+
+
+def run_host_model_path(card: str) -> dict:
+    """The host-model entry points on the card: ``walnuts_stan`` on the
+    eight-schools BridgeStan-ABI model (``csrc/abi_models.cpp``, through
+    the port's native bridge) x HOST_CHAINS, float64, against the port's
+    autograd ``walnuts(eight_schools())`` at the same seed (the share of
+    chains with equal ``n_grads`` at least HOST_SHARE, ``mu`` to rtol /
+    atol 1e-3 on those); then ``walnuts_pyfunc`` with the ``(ctypes_cfunc,
+    data)`` form of ``csrc/callback_model.c`` (a standard normal, D =
+    PYFUNC_DIM) x PYFUNC_CHAINS: every coordinate's pooled mean within 0.1
+    of 0, its sd within 10 % of 1. Returns kernel 1's launches on the two
+    host-model runs."""
+    import ctypes
+
+    import walnuts_tpu_torch as wtt
+    import walnuts_tpu_torch.api as api
+    from walnuts_tpu_torch.models import eight_schools
+    from walnuts_tpu_torch.ops._cuda import build_host
+
+    t0 = time.perf_counter()
+    so = build_host(ROOT / "csrc" / "abi_models.cpp",
+                    defines=("ABI_MODEL_EIGHT_SCHOOLS",))
+    cb = build_host(ROOT / "csrc" / "callback_model.c")
+    from walnuts_tpu_torch.models.stan import build_bridge
+
+    bridge = build_bridge()
+    print(f"[host model] g++ / gcc builds {time.perf_counter() - t0:.2f} s -> "
+          f"{so}, {cb}, {bridge}  [{card}]")
+    kw = dict(seed=HOST_SEED, num_chains=HOST_CHAINS, dtype=torch.float64,
+              device=DEVICE, min_warmup_iter=HOST_ITERS, max_warmup_iter=HOST_ITERS,
+              min_sampling_iter=HOST_ITERS, max_sampling_iter=HOST_ITERS,
+              return_info=True)
+    real = api.host_model
+    timers, launches, walls, infos = [], 0, [], []
+    try:
+        for what in ("stan", "pyfunc"):
+            timer = api.host_model = _HostTimer(real)
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "stan":
+                out_s, info = wtt.walnuts_stan(str(so), **kw)
+            else:
+                lib = ctypes.CDLL(str(cb))
+                proto = ctypes.CFUNCTYPE(
+                    ctypes.c_int, ctypes.c_size_t, ctypes.POINTER(ctypes.c_double),
+                    ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+                    ctypes.c_void_p)
+                out_p, info = wtt.walnuts_pyfunc(
+                    (proto(("logp_cb", lib)), None), num_params=PYFUNC_DIM,
+                    **{**kw, "num_chains": PYFUNC_CHAINS, "seed": HOST_SEED + 1,
+                       "dtype": torch.float32})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            timers.append(timer)
+            infos.append(info)
+            n = _counts()["replay_split_chain"]
+            if n <= 0:
+                raise AssertionError(f"the {what} run never launched replay_split_chain")
+            launches += n
+    finally:
+        api.host_model = real
+
+    logp, dim = eight_schools(device=DEVICE)
+    t0 = time.perf_counter()
+    out_a, info_a = wtt.walnuts(logp, num_params=dim, **kw)
+    wall_a = time.perf_counter() - t0
+    equal = infos[0].n_grads == info_a.n_grads
+    share = float(equal.mean())
+    mu_s = np.stack([o["mu"] for o in out_s], axis=1)
+    mu_a = np.stack([np.asarray(o)[:, 0] for o in out_a], axis=1)
+    if (not np.isfinite(mu_s).all()) or mu_s.shape != (HOST_ITERS, HOST_CHAINS):
+        raise AssertionError(f"host model path: bad Stan draws {mu_s.shape}")
+    off = ~np.isclose(mu_s[:, equal], mu_a[:, equal], rtol=1e-3, atol=1e-3)
+    tau = np.stack([o["tau"] for o in out_s])
+    for what, timer, wall, info in zip(("stan", "pyfunc"), timers, walls, infos):
+        trips = info.n_inner_trips["warmup"] + info.n_inner_trips["sampling"]
+        secs = info.seconds["warmup"] + info.seconds["sampling"]
+        print(f"[host model] {what}: wall {wall:.3f} s; {timer.calls} model calls, "
+              f"{timer.seconds / timer.calls * 1e3:.3f} ms a call on the host "
+              f"(copies included) against {secs / trips * 1e3:.3f} ms a trip "
+              f"({trips} trips in {secs:.3f} s)  [{card}]")
+    print(f"[host model] eight schools x {HOST_CHAINS}, float64, {HOST_ITERS} + "
+          f"{HOST_ITERS}: walnuts_stan against the autograd model ({wall_a:.3f} s): "
+          f"{share:.4f} of the chains with equal n_grads (limit {HOST_SHARE}); on "
+          f"those, mu off rtol / atol 1e-3 at {int(off.sum())} of {off.size} draws; "
+          f"tau > 0: {bool((tau > 0).all())}; kernel 1 launches on the two "
+          f"host-model runs {launches}  [{card}]")
+    if share < HOST_SHARE or off.any() or not (tau > 0).all():
+        raise AssertionError("host model path: walnuts_stan disagrees with autograd")
+    d = np.stack([np.asarray(o) for o in out_p], axis=1).reshape(-1, PYFUNC_DIM)
+    mean, sd = d.mean(0), d.std(0)
+    print(f"[host model] pyfunc standard normal D = {PYFUNC_DIM} x {PYFUNC_CHAINS}: "
+          f"pooled |mean| up to {np.abs(mean).max():.4f} (limit 0.1), sd in "
+          f"[{sd.min():.4f}, {sd.max():.4f}] (limit 1 +- 0.1)  [{card}]")
+    if not np.isfinite(d).all() or np.abs(mean).max() > 0.1 or np.abs(sd - 1).max() > 0.1:
+        raise AssertionError("host model path: pyfunc moments off")
+    return {"replay_split_chain": launches}
+
+
+def run_profile_and_cli(card: str) -> None:
+    """``walnuts(profile_dir=...)`` on the main path's model (5 + 5
+    iterations): the Chrome trace must name the replay and the
+    logistic-regression kernels. Meanwhile ``python -m
+    walnuts_tpu_torch.cli`` on funnel(25) x 8 runs in a subprocess: exit 0
+    and its table."""
+    import glob
+    import sys
+    import tempfile
+
+    from torch.profiler import profile
+
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+
+    cmd = [sys.executable, "-m", "walnuts_tpu_torch.cli", "--model", "funnel",
+           "--dim", "25", "--chains", "8", "--warmup", "20", "--sampling", "20",
+           "--device", DEVICE]
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+        real_export, export_s = profile.export_chrome_trace, []
+
+        def timed_export(prof, path):
+            t0 = time.perf_counter()
+            try:
+                return real_export(prof, path)
+            finally:
+                export_s.append(time.perf_counter() - t0)
+
+        with tempfile.TemporaryDirectory(prefix="walnuts-prof-") as d:
+            profile.export_chrome_trace = timed_export
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                wtt.walnuts(logp_grad, fused=True, num_params=dim, num_chains=CHAINS,
+                            dtype=torch.float32, seed=SEED + 60, device=DEVICE,
+                            min_warmup_iter=5, max_warmup_iter=5, min_sampling_iter=5,
+                            max_sampling_iter=5, block_size=5,
+                            max_step_halvings=HALVINGS, profile_dir=d)
+            finally:
+                profile.export_chrome_trace = real_export
+            wall = time.perf_counter() - t0
+            traces = glob.glob(os.path.join(d, "walnuts-*.pt.trace.json"))
+            if len(traces) != 1:
+                raise AssertionError(f"profile_dir: {len(traces)} trace files")
+            found = dict.fromkeys(("replay_kernel", "logreg_kernel"), 0)
+            with open(traces[0]) as f:  # in pieces: the trace runs to GiB
+                tail = ""
+                while chunk := f.read(1 << 26):
+                    text = tail + chunk
+                    for k in found:
+                        found[k] += text.count(k) - tail.count(k)
+                    tail = text[-64:]
+            size = os.path.getsize(traces[0])
+        print(f"[profile_dir] 5 + 5 iterations with profile_dir: wall {wall:.3f} s, "
+              f"of which the trace's export {sum(export_s):.3f} s; "
+              f"{os.path.basename(traces[0])} {size / 2**20:.1f} MiB, kernel names "
+              f"found {json.dumps(found)} (the CLI ran beside it)  [{card}]")
+        if not all(found.values()):
+            raise AssertionError("profile_dir: the trace misses a kernel")
+        stdout, stderr = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    wall = time.perf_counter() - t_cli
+    lines = stdout.splitlines()
+    if (cli.returncode != 0 or not lines or lines[0].split()[:2] != ["parameter", "mean"]
+            or "gradient evaluations:" not in stdout):
+        raise AssertionError(f"CLI failed (exit {cli.returncode}):\n{stdout}\n"
+                             f"{stderr[-4000:]}")
+    profile_lines = [ln for ln in lines if ln.startswith(("total wall", "gradient eval",
+                                                          "chains:"))]
+    print(f"[cli] {' '.join(cmd[1:])}: exit 0, done {wall:.3f} s after its start "
+          f"(process start included, beside the profile_dir run); {len(lines)} "
+          f"lines; {' | '.join(profile_lines)}  [{card}]")
+
+
 def profile_window(card: str) -> None:
     """Device time by kernel over a short run (10 + 10 iterations)."""
     import walnuts_tpu_torch as wtt
@@ -1723,6 +2082,14 @@ def profile_window(card: str) -> None:
           f"{busy_us / 1e6 / wall:.3f}  [{card}]")
     for key, us, count in kernels[:12]:
         print(f"[profile]   {us / 1e3:10.2f} ms  {count:7d}x  {key[:90]}")
+
+
+def _phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -1756,6 +2123,7 @@ def main() -> None:
         for kernel, regs, spill in ptxas_report(b["log"]):
             print(f"[build]   {kernel}: {regs} registers, {spill} bytes spill stores")
 
+    t0 = time.perf_counter()
     empty = check_empty(card)
     kernels = [check_replay(card), check_logreg(card), check_fused_pass(card, DIM)]
     kernels[0].update(empty)
@@ -1774,26 +2142,29 @@ def main() -> None:
     kernels.extend(checked)
     print(f"[transition] 5a / 5b ({BLOCK_CHECK_DRAWS} draws) at C={CHAINS}, each "
           f"body's time and share of its bound: {json.dumps(shares)}  [{card}]")
+    print(f"[phase] kernel checks: {time.perf_counter() - t0:.1f} s")
     ref = laplace(*logistic_regression_data(ROWS, DIM))
-    launches, path = run_main_path(card, ref)
+    launches, path = _phase("main path", run_main_path, card, ref)
     path = {"replay_split_chain": path}
     order = ("unfused", "fused", "fused", "unfused") if args.ab else ("unfused", "fused")
-    route_launches, warmed, path["fused_pass"] = run_fused_route(card, ref, order=order)
+    route_launches, warmed, path["fused_pass"] = _phase(
+        "fused route", run_fused_route, card, ref, order=order)
     launches["fused_pass"] = route_launches["fused_pass"]
-    launches["integrator"] = run_classic_path(card, ref)
-    classic = run_classic_ab(card, warmed)
-    path_launches, path_t = run_transition_path(card, ref, warmed)
+    launches["integrator"] = _phase("classic path", run_classic_path, card, ref)
+    classic = _phase("classic A/B", run_classic_ab, card, warmed)
+    path_launches, path_t = _phase("transition path", run_transition_path, card, ref,
+                                   warmed)
     path.update(path_t, integrator=classic[2])
     launches.update({k: path_launches[k]
                      for k in ("fused_transition", "fused_sample_block")})
-    run_transition_ab(card, warmed, classic)
-    # the funnel and SV paths' launches and times under keys of their own
+    _phase("transition A/B", run_transition_ab, card, warmed, classic)
+    # the other paths' launches and times under keys of their own
     extra = {k["name"]: {} for k in kernels}
-    f_launches, f_path = run_funnel_path(card)
+    f_launches, f_path = _phase("funnel path", run_funnel_path, card)
     extra["replay_split_chain"].update(launches_funnel=f_launches["replay_split_chain"],
                                        path_ms_funnel=f_path["path_ms"],
                                        path_bound_ms_funnel=f_path["path_bound_ms"])
-    s_launches, s_path = run_sv_path(card)
+    s_launches, s_path = _phase("SV path", run_sv_path, card)
     extra["replay_split_chain"].update(
         launches_sv=s_launches["replay_split_chain"],
         path_ms_sv=s_path["replay_split_chain"]["path_ms"],
@@ -1802,11 +2173,17 @@ def main() -> None:
         launches_sv=s_launches["fused_pass"],
         path_ms_sv=s_path["fused_pass"]["path_ms"],
         path_bound_ms_sv=s_path["fused_pass"]["path_bound_ms"])
+    c_launches = _phase("checkpoint path", run_checkpoint_path, card)
+    for name in ("replay_split_chain", "logreg_value_grad"):
+        extra[name]["launches_ckpt"] = c_launches[name]
+    h_launches = _phase("host model path", run_host_model_path, card)
+    extra["replay_split_chain"]["launches_host_model"] = h_launches["replay_split_chain"]
+    _phase("profile_dir and CLI", run_profile_and_cli, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k.update(path.get(k["name"], {}), **extra[k["name"]])
     if args.profile:
-        profile_window(card)
+        _phase("profile window", profile_window, card)
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all  [{card}]")
     # the contract's keys, then kernel 2's matrix products, the time and
     # bound of a launch on the kernel's own path where they differ from the
@@ -1817,7 +2194,8 @@ def main() -> None:
             "path_ms", "path_bound_ms", "group_warps", "empty_queued_ms",
             "empty_single_ms", "host_ms", "ms_d101", "bound_ms_d101", "ms_d1003",
             "bound_ms_d1003", "launches_funnel", "path_ms_funnel",
-            "path_bound_ms_funnel", "launches_sv", "path_ms_sv", "path_bound_ms_sv")
+            "path_bound_ms_funnel", "launches_sv", "path_ms_sv", "path_bound_ms_sv",
+            "launches_ckpt", "launches_host_model")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -185,11 +185,8 @@ def test_sv_wide_model_dtype_matches_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("checkpoint_dir", "ckpt"),
-    ("checkpoint_every", 5), ("checkpoint_keep_last_n", 2), ("resume", False),
-    ("bf16_ends", True), ("flatten", True),
-    ("chain_groups", 2), ("profile_dir", "prof"),
-    ("min_latched", 1), ("defer_splits", False),
+    ("mesh", object()), ("bf16_ends", True), ("flatten", True),
+    ("chain_groups", 2), ("min_latched", 1), ("defer_splits", False),
 ])
 def test_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match=option):
@@ -213,17 +210,68 @@ def test_unknown_option_is_a_type_error():
         wtt.walnuts(funnel(3)[0], num_params=3, device="cpu", no_such_option=1)
 
 
-def test_import_loads_no_jax():
+def test_profile_dir_writes_a_trace(tmp_path):
+    """profile_dir: a torch.profiler Chrome trace of the run, naming the
+    run's operations."""
+    wtt.walnuts(funnel(3)[0], num_params=3, num_chains=1, seed=1, device="cpu",
+                min_warmup_iter=1, max_warmup_iter=1, min_sampling_iter=1,
+                max_sampling_iter=1, profile_dir=str(tmp_path / "prof"))
+    traces = list((tmp_path / "prof").glob("walnuts-*.pt.trace.json"))
+    assert len(traces) == 1
+    assert "aten::" in traces[0].read_text()
+
+
+@pytest.fixture(scope="module")
+def fresh_process(tmp_path_factory):
+    """One new interpreter that imports every module of the port, runs
+    ``python -m walnuts_tpu_torch.cli`` in it (``runpy``, as ``-m`` does)
+    on the CPU, and prints the JAX modules loaded after both: its output,
+    the CLI's exit code, and the ``--out`` file."""
+    out = tmp_path_factory.mktemp("cli") / "draws.npz"
+    argv = ["walnuts_tpu_torch.cli", "--model", "funnel", "--dim", "3", "--chains",
+            "2", "--warmup", "3", "--sampling", "4", "--seed", "2", "--device",
+            "cpu", "--out", str(out)]
     code = (
-        "import sys, walnuts_tpu_torch, walnuts_tpu_torch.convert, "
+        "import json, runpy, sys, walnuts_tpu_torch, walnuts_tpu_torch.convert, "
         "walnuts_tpu_torch.ops.logreg_fused, walnuts_tpu_torch.ops._cuda, "
         "walnuts_tpu_torch.ops.integrator, walnuts_tpu_torch.ops.fused_pass, "
         "walnuts_tpu_torch.models.kernels, walnuts_tpu_torch.models.targets, "
-        "walnuts_tpu_torch.summary_device, walnuts_tpu_torch.parity\n"
+        "walnuts_tpu_torch.summary_device, walnuts_tpu_torch.parity, "
+        "walnuts_tpu_torch.models.stan, walnuts_tpu_torch.parallel.checkpoint\n"
+        "from walnuts_tpu_torch import BlockCheckpointer, walnuts_pyfunc, "
+        "walnuts_stan\n"
+        f"sys.argv = {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module('walnuts_tpu_torch.cli', run_name='__main__', "
+        "alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'walnuts_tpu'"
         " or m.startswith('walnuts_tpu.'))\n"
-        "assert not bad, bad\n"
+        "print('JAX_MODULES', json.dumps(bad), rc)\n"
     )
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
-                   cwd=Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                          capture_output=True, text=True,
+                          cwd=Path(__file__).resolve().parents[1])
+    return proc.stdout, out
+
+
+def test_cli_samples_on_the_cpu(fresh_process):
+    """python -m walnuts_tpu_torch.cli: exit 0, the summary table and the
+    built-in profile, and the draws written with --out."""
+    stdout, out = fresh_process
+    lines = stdout.splitlines()
+    assert lines[0].split() == ["parameter", "mean", "sd", "mcse", "ess", "rhat"]
+    assert [ln.split()[0] for ln in lines[1:4]] == ["theta[0]", "theta[1]", "theta[2]"]
+    assert "gradient evaluations:" in stdout
+    assert lines[-1].split()[-1] == "0"  # the CLI's exit code
+    assert np.load(out)["draws"].shape == (2, 4, 3)
+
+
+def test_import_loads_no_jax(fresh_process):
+    """No module of the port, its entry points and its CLI run included,
+    loads JAX or the JAX package."""
+    last = fresh_process[0].splitlines()[-1].split(" ", 1)
+    assert last[0] == "JAX_MODULES"
+    assert last[1].rsplit(" ", 1)[0] == "[]", last[1]

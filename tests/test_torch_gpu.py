@@ -917,3 +917,109 @@ def test_fused_pass_kernel_on_warmed_sv_state(cuda):
                     assert float((k - w)[both].abs().max()) <= 1e-3, name
             else:
                 assert torch.equal(k, w), name
+
+
+def test_checkpoint_crash_resume_bitwise_on_card(cuda, tmp_path):
+    """logreg(25) x 4096 with kernel 2 (``fused=True``), 10 + 10 in blocks
+    of 5: a run crashed after its first sampling block and resumed from its
+    checkpoint is the uninterrupted run bit for bit (draws, step sizes,
+    inverse metrics, ``n_grads``)."""
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
+
+    lg, dim = logistic_regression_fused(device="cuda")
+    kw = dict(fused=True, num_params=dim, num_chains=4096, dtype=torch.float32,
+              seed=41, device="cuda", min_warmup_iter=10, max_warmup_iter=10,
+              min_sampling_iter=10, max_sampling_iter=10, block_size=5,
+              max_step_halvings=8, save_inv_metric=True, return_info=True)
+    before = logreg_value_grad.launches
+    plain, info = wtt.walnuts(lg, **kw)
+    assert logreg_value_grad.launches > before
+    real = BlockCheckpointer.block
+
+    def block_then_crash(self, phase, it, *args, **kwargs):
+        real(self, phase, it, *args, **kwargs)
+        if (phase, it) == ("sampling", 5):
+            raise KeyError("simulated preemption")
+
+    BlockCheckpointer.block = block_then_crash
+    try:
+        with pytest.raises(KeyError, match="simulated preemption"):
+            wtt.walnuts(lg, checkpoint_dir=str(tmp_path), **kw)
+    finally:
+        BlockCheckpointer.block = real
+    resumed, info_r = wtt.walnuts(lg, checkpoint_dir=str(tmp_path), **kw)
+    a = np.stack([np.asarray(c) for c in plain])
+    assert np.isfinite(a).all()
+    np.testing.assert_array_equal(a, np.stack([np.asarray(c) for c in resumed]))
+    assert [c.warmup.stepsize for c in plain] == [c.warmup.stepsize for c in resumed]
+    np.testing.assert_array_equal(np.stack([c.warmup.inv_metric for c in plain]),
+                                  np.stack([c.warmup.inv_metric for c in resumed]))
+    np.testing.assert_array_equal(info.n_grads, info_r.n_grads)
+
+
+def _root():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parents[1]
+
+
+def test_walnuts_stan_eight_schools_vs_autograd_on_card(cuda):
+    """The eight-schools ABI model through the native bridge against the
+    port's autograd model, 1024 chains, float64, 30 + 30, same seed: at
+    least 0.99 of the chains with equal ``n_grads``, and on those ``mu`` to
+    rtol / atol 1e-3 (the reference's parity test at the card's width)."""
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.models import eight_schools
+    from walnuts_tpu_torch.ops._cuda import build_host
+
+    so = build_host(_root() / "csrc" / "abi_models.cpp",
+                    defines=("ABI_MODEL_EIGHT_SCHOOLS",))
+    kw = dict(seed=43, num_chains=1024, dtype=torch.float64, device="cuda",
+              min_warmup_iter=30, max_warmup_iter=30, min_sampling_iter=30,
+              max_sampling_iter=30, return_info=True)
+    before = prng.replay_split_chain.launches
+    out_s, info_s = wtt.walnuts_stan(str(so), **kw)
+    assert prng.replay_split_chain.launches > before
+    out_a, info_a = wtt.walnuts(eight_schools(device="cuda")[0], num_params=10, **kw)
+    equal = info_s.n_grads == info_a.n_grads
+    assert equal.mean() >= 0.99, equal.mean()
+    mu_s = np.stack([o["mu"] for o in out_s], axis=1)[:, equal]
+    mu_a = np.stack([np.asarray(o)[:, 0] for o in out_a], axis=1)[:, equal]
+    np.testing.assert_allclose(mu_s, mu_a, rtol=1e-3, atol=1e-3)
+
+
+def test_walnuts_pyfunc_ctypes_callback_on_card(cuda):
+    """walnuts_pyfunc with the ``(ctypes_cfunc, data)`` form of
+    ``csrc/callback_model.c`` (a standard normal, D = 100) x 256 chains, 30
+    + 30: every coordinate's pooled mean within 0.1 of 0, its sd within 10 %
+    of 1; the replay kernel runs."""
+    import ctypes
+
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.ops._cuda import build_host
+
+    lib = ctypes.CDLL(str(build_host(_root() / "csrc" / "callback_model.c")))
+    proto = ctypes.CFUNCTYPE(
+        ctypes.c_int, ctypes.c_size_t, ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+        ctypes.c_void_p)
+    before = prng.replay_split_chain.launches
+    out = wtt.walnuts_pyfunc((proto(("logp_cb", lib)), None), num_params=100,
+                             num_chains=256, seed=47, device="cuda",
+                             min_warmup_iter=30, max_warmup_iter=30,
+                             min_sampling_iter=30, max_sampling_iter=30)
+    assert prng.replay_split_chain.launches > before
+    d = np.stack([np.asarray(c) for c in out]).reshape(-1, 100)
+    assert np.isfinite(d).all()
+    assert np.abs(d.mean(0)).max() <= 0.1
+    assert np.abs(d.std(0) - 1.0).max() <= 0.1
+
+
+def test_failed_host_build_raises_on_card(cuda, tmp_path):
+    from walnuts_tpu_torch.ops._cuda import build_host
+
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("int f( {\n")
+    with pytest.raises(RuntimeError, match="failed"):
+        build_host(bad)

@@ -8,8 +8,13 @@ JAX.
 
 Ported so far: the batched-native ``walnuts()`` path (asynchronous
 adaptive warmup and sampling on one device, with ``batched_groups``,
-``model_dtype``, ``thin`` and ``keep_dims``) and the classic per-draw path
-(``batched=False``, ``integrator=``), the reference's nine targets
+``model_dtype``, ``thin``, ``keep_dims``, checkpoint and resume
+(``checkpoint_dir``, ``BlockCheckpointer``) and a profiler trace
+(``profile_dir``)) and the classic per-draw path (``batched=False``,
+``integrator=``); the host-model entry points ``walnuts_pyfunc`` (a Python
+callable or a C function) and ``walnuts_stan`` (a compiled BridgeStan
+model through the native bridge, ``csrc/stan_bridge.cpp``); the command
+line (``python -m walnuts_tpu_torch.cli``); the reference's nine targets
 (``models``), the diagnostics on the host (``summary``) and on the device
 (``summary_device``), the tight parity statistics (``parity``), and the
 reference's six kernels — the deferred threefry
@@ -21,8 +26,10 @@ and gradient (``csrc/logreg.cu``), the fused tier-2 pass
 entry points, as in the reference). ROADMAP.md lists what remains.
 """
 
-from walnuts_tpu_torch.api import walnuts
+from walnuts_tpu_torch.api import walnuts, walnuts_pyfunc
 from walnuts_tpu_torch.config import InitConfig, SamplingConfig, WalnutsConfig, WarmupConfig
+from walnuts_tpu_torch.models.stan import walnuts_stan
+from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
 from walnuts_tpu_torch.parallel.runtime import RunInfo
 from walnuts_tpu_torch.summary import (
     Summarizer,
@@ -41,6 +48,7 @@ from walnuts_tpu_torch.utils.output import WalnutsOutputArray, WarmupInfo
 __version__ = "0.2.0"
 
 __all__ = [
+    "BlockCheckpointer",
     "InitConfig",
     "RunInfo",
     "SamplingConfig",
@@ -59,4 +67,6 @@ __all__ = [
     "standard_deviation",
     "variance",
     "walnuts",
+    "walnuts_pyfunc",
+    "walnuts_stan",
 ]

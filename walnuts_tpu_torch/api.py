@@ -1,12 +1,17 @@
 """End-to-end sampling API of the PyTorch port.
 
-Counterpart of ``walnuts_tpu/api.py::walnuts`` on one device: by default
-the batched-native scheduler (asynchronous adaptive warmup, then
+Counterpart of ``walnuts_tpu/api.py`` on one device. ``walnuts`` runs by
+default the batched-native scheduler (asynchronous adaptive warmup, then
 sampling), with ``batched=False`` or an ``integrator`` the classic
-per-draw path. The model is a batched PyTorch function ``theta (C, D) ->
-log density (C,)`` differentiated by autograd, or with ``fused=True`` a
-function ``theta (C, D) -> (log density (C,), gradient (C, D))`` such as
-``ops.logreg_fused.logistic_regression_fused``.
+per-draw path, with checkpoint and resume (``checkpoint_dir``) and a
+profiler trace (``profile_dir``). The model is a batched PyTorch function
+``theta (C, D) -> log density (C,)`` differentiated by autograd, or with
+``fused=True`` a function ``theta (C, D) -> (log density (C,), gradient
+(C, D))`` such as ``ops.logreg_fused.logistic_regression_fused``.
+``walnuts_pyfunc`` samples a model evaluated on the host (a Python
+callable or a C function on NumPy rows) through ``host_model``, one
+batched round trip per model evaluation, as ``models.stan`` does for a
+compiled Stan model.
 
 The device is explicit: everything runs on ``device`` (default
 ``"cuda"``), and nothing moves to another device by itself. The seed's
@@ -16,7 +21,11 @@ so a run can be compared chain by chain with the reference.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import numbers
+import os
+import time
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -35,6 +44,7 @@ from walnuts_tpu_torch.ops.math import (
     make_logp_grad,
     sanitize_logp_grad,
 )
+from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
 from walnuts_tpu_torch.parallel.runtime import (
     RunInfo,
     _refuse_groups,
@@ -52,14 +62,9 @@ from walnuts_tpu_torch.utils.output import (
 # select the ported behaviour, and what a user must know otherwise
 _NOT_PORTED = {
     "mesh": ((None,), "multi-device chain sharding (ROADMAP.md Queue 1, multi-GPU)"),
-    "checkpoint_dir": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
-    "checkpoint_every": ((1,), "checkpoint and resume (ROADMAP.md Queue 1)"),
-    "checkpoint_keep_last_n": ((None,), "checkpoint and resume (ROADMAP.md Queue 1)"),
-    "resume": ((True,), "checkpoint and resume (ROADMAP.md Queue 1)"),
     "bf16_ends": ((False,), "bfloat16 merge-stack endpoints (ROADMAP.md Queue 1)"),
     "flatten": ((False,), "the flattened classic scheduler (ROADMAP.md Queue 1)"),
     "chain_groups": ((1,), "classic chain groups (ROADMAP.md Queue 1)"),
-    "profile_dir": ((None,), "profiler traces (ROADMAP.md Queue 1)"),
     "min_latched": ((0,), "tier-2 pass deferral (ROADMAP.md Queue 1)"),
     "defer_splits": ((True,), "per-trip key splits; the port always defers "
                               "them (ROADMAP.md Queue 1)"),
@@ -125,6 +130,11 @@ def walnuts(
     batched_groups: int = 1,
     thin: int = 1,
     keep_dims=None,
+    profile_dir: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_keep_last_n: Optional[int] = None,
+    resume: bool = True,
     **unported,
 ) -> Union[List[WalnutsOutputArray], Tuple[List[WalnutsOutputArray], RunInfo]]:
     """Sample from a batched PyTorch log density with adaptive WALNUTS.
@@ -157,6 +167,18 @@ def walnuts(
     - ``thin``: keep every ``thin``-th sampling draw (must divide
       ``block_size``); ``keep_dims``: keep only these dimensions of each
       draw. The sampler itself advances every iteration in every dimension.
+    - ``profile_dir``: trace the whole run with ``torch.profiler`` (host
+      operations and, on a CUDA device, kernels) and write it there as a
+      Chrome trace, ``walnuts-<time>-<pid>.pt.trace.json``.
+    - ``checkpoint_dir``: persist the run state every ``checkpoint_every``
+      blocks (``parallel.checkpoint.BlockCheckpointer``); a later call with
+      the same arguments resumes from the latest checkpoint, mid-warmup or
+      mid-sampling, and returns the draws of the uninterrupted run bit for
+      bit (the keys are part of the state). ``resume=False`` starts over;
+      a checkpoint written under other run arguments (seed, counts, dtype,
+      ...) is refused with a warning and the run starts over.
+      ``checkpoint_keep_last_n`` compacts each phase's older block files
+      into one (no draw is dropped).
 
     Options of the reference that the port does not have yet raise
     ``NotImplementedError`` when set to anything but their default.
@@ -196,6 +218,7 @@ def walnuts(
         raise ValueError(
             f"num_params must be positive; found num_params = {num_params}")
 
+    user_seed = seed  # None: not reproducible, so any checkpoint may resume
     seed = prepare_seed(seed)
     base_key = prng.key(seed, device)
     chain_ids = np.arange(id, id + num_chains)
@@ -316,32 +339,92 @@ def walnuts(
         def on_r_hat(value: float) -> None:
             print(f"R-hat: {value:.4f}")
 
-    wstate = init_warmup_state(chain_keys, theta0, init_mass, step0,
-                               warmup_cfg, sampling_cfg)
-    wstate, warmup_draws, warmup_logps, info = run_warmup(
-        logp_grad, wstate, warmup_cfg, sampling_cfg,
-        save_warmup=save_warmup, progress=progress, batched=batched,
-        integrator=integrator,
-        tier2_every=12 if warmup_tier2_every is None else warmup_tier2_every,
-        batched_groups=batched_groups,
-    )
-    params = freeze_params(wstate)
-    if info.interrupted:
-        out_dim = num_params if keep_dims is None else len(keep_dims)
-        draws = np.zeros((0, num_chains, out_dim))
-    else:
-        sstate = init_sample_state(wstate)
-        _, draws_t, _, info = run_sampling(
-            logp_grad, sstate, params, sampling_cfg, info=info,
-            progress=progress, on_r_hat=on_r_hat, batched=batched,
-            integrator=integrator, runahead=runahead,
-            tier2_every=tier2_every, batched_groups=batched_groups,
-            thin=thin, keep_dims=keep_dims,
-        )
-        draws = draws_t.cpu().numpy()
-    if warmup_draws is not None:
-        warmup_draws = warmup_draws.cpu().numpy()
-        warmup_logps = warmup_logps.cpu().numpy()
+    ckpt = resume_meta = None
+    if checkpoint_dir is not None:
+        # every argument that changes the draws; resume refuses a
+        # checkpoint written under others
+        fingerprint = {
+            "seed": None if user_seed is None else int(seed),
+            "num_chains": int(num_chains),
+            "num_params": int(num_params),
+            "warmup_iter": [int(min_warmup_iter), int(max_warmup_iter)],
+            "sampling_iter": [int(min_sampling_iter), int(max_sampling_iter)],
+            "thin": int(thin),
+            "keep_dims": None if keep_dims is None else [int(k) for k in keep_dims],
+            "dtype": str(dtype).removeprefix("torch."),
+            "block_size": int(block_size),
+        }
+        ckpt = BlockCheckpointer(checkpoint_dir, every=checkpoint_every,
+                                 keep_last_n=checkpoint_keep_last_n,
+                                 fingerprint=fingerprint)
+        if resume:
+            resume_meta = ckpt.latest()
+        if resume_meta is None:
+            ckpt.reset()  # drop the blocks of an earlier run
+
+    with _profiled(profile_dir, device):
+        # the warmup state is also the template of a restore
+        wstate = init_warmup_state(chain_keys, theta0, init_mass, step0,
+                                   warmup_cfg, sampling_cfg)
+        start_sampling = 0
+        warmup_draws = warmup_logps = None
+        if resume_meta is not None and resume_meta["phase"] == "sampling":
+            # stopped mid-sampling: skip warmup, restore the frozen state
+            sstate, params, info = ckpt.restore(init_sample_state(wstate),
+                                                freeze_params(wstate))
+            start_sampling = resume_meta["it"]
+            if save_warmup:
+                warmup_draws, warmup_logps = ckpt.saved_blocks(
+                    "warmup", info.warmup_iters + 1)
+        else:
+            start_warmup, warmup_info = 0, None
+            if resume_meta is not None and resume_meta["phase"] == "warmup":
+                # the restored RunInfo keeps the counters (and the
+                # converged flag) of the whole run
+                wstate, _, warmup_info = ckpt.restore(wstate)
+                start_warmup = resume_meta["it"]
+            wstate, warmup_t, warmup_lp_t, info = run_warmup(
+                logp_grad, wstate, warmup_cfg, sampling_cfg,
+                save_warmup=save_warmup, progress=progress, batched=batched,
+                integrator=integrator,
+                tier2_every=12 if warmup_tier2_every is None else warmup_tier2_every,
+                batched_groups=batched_groups, checkpoint=ckpt,
+                start_it=start_warmup, info=warmup_info,
+            )
+            if warmup_t is not None:
+                warmup_draws = warmup_t.cpu().numpy()
+                warmup_logps = warmup_lp_t.cpu().numpy()
+            if ckpt is not None and start_warmup and save_warmup:
+                prev_d, prev_l = ckpt.saved_blocks("warmup", start_warmup)
+                if prev_d is not None:
+                    warmup_draws = np.concatenate([prev_d, warmup_draws])
+                    warmup_logps = np.concatenate([prev_l, warmup_logps])
+            params = freeze_params(wstate)
+            sstate = None if info.interrupted else init_sample_state(wstate)
+            if ckpt is not None and not info.interrupted:
+                # the phase change is durable: a crash before the first
+                # sampling block resumes here, not in warmup
+                ckpt.save("sampling", 0, sstate, info, params=params)
+
+        if info.interrupted:
+            out_dim = num_params if keep_dims is None else len(keep_dims)
+            draws = np.zeros((0, num_chains, out_dim))
+        else:
+            _, draws_t, _, info = run_sampling(
+                logp_grad, sstate, params, sampling_cfg, info=info,
+                progress=progress, on_r_hat=on_r_hat, batched=batched,
+                integrator=integrator, runahead=runahead,
+                tier2_every=tier2_every, batched_groups=batched_groups,
+                thin=thin, keep_dims=keep_dims, checkpoint=ckpt,
+                start_it=start_sampling,
+            )
+            draws = draws_t.cpu().numpy()
+            if ckpt is not None and start_sampling:
+                prev_d, _ = ckpt.saved_blocks("sampling", start_sampling)
+                if prev_d is not None:
+                    # sampling_iters already counts from 0: run_sampling
+                    # started at start_sampling
+                    draws = np.concatenate([prev_d, draws])
 
     step_sizes = params.step_size.cpu().numpy()
     inv_metric_out = params.inv_mass.cpu().numpy() if save_inv_metric else None
@@ -359,4 +442,100 @@ def walnuts(
     return outputs
 
 
-__all__ = ["walnuts"]
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device: torch.device):
+    """``torch.profiler`` over the body (CPU operations and, on a CUDA
+    device, kernels), written to ``profile_dir`` as a Chrome trace; a
+    no-op for None."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield  # the run ends on a device synchronize (parallel/runtime.py)
+    name = f"walnuts-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.pt.trace.json"
+    prof.export_chrome_trace(os.path.join(profile_dir, name))
+
+
+def host_model(evaluate: Callable[[np.ndarray, np.ndarray, np.ndarray], None]):
+    """A batched ``fused=True`` model of a function evaluated on the host.
+
+    ``evaluate(theta, logp, grad)`` reads ``theta`` (C', D) float64 and
+    writes ``logp`` (C',) and ``grad`` (C', D), float64 C-contiguous. The
+    model copies ``theta`` to the host once per call and the results back
+    once, to ``theta``'s device and dtype. ``C'`` is the chain count the
+    scheduler evaluates (a group's under ``batched_groups``).
+    """
+
+    def logp_grad(theta: torch.Tensor):
+        C, D = theta.shape
+        th = np.ascontiguousarray(theta.detach().to("cpu", torch.float64).numpy())
+        buf = np.empty(C * D + C)  # the gradient, then the log density
+        evaluate(th, buf[C * D:], buf[:C * D].reshape(C, D))
+        out = torch.from_numpy(buf).to(theta.device, theta.dtype)
+        return out[C * D:], out[:C * D].view(C, D)
+
+    return logp_grad
+
+
+def walnuts_pyfunc(logp, **kwargs):
+    """Sample a model evaluated on the host, as the reference library's
+    ``walnuts_pyfunc`` (and the JAX package's) accepts it:
+
+    - a Python callable ``theta -> (logp, grad)`` on NumPy float64 rows;
+    - anything with a ``.ctypes`` attribute, e.g. a numba ``@cfunc`` of the
+      ``RawLogpFunc`` signature ``int(size_t n, const double* theta,
+      double* grad, double* lp, void* data)``, called directly;
+    - a ``(ctypes_cfunc, data)`` tuple of the same C signature, ``data``
+      (a ctypes object or None) passed by reference as the last argument.
+
+    Each model evaluation copies the chains' positions to the host once,
+    evaluates the rows one after the other, and copies the results back
+    once (``host_model``). A raising callable or a nonzero C return code
+    gives that row ``logp = -inf`` and a zero gradient. The other keyword
+    arguments are ``walnuts``'s (``device`` defaults to ``"cuda"``, the
+    sampler's ``dtype`` to float32).
+    """
+    cfunc = data_ref = None
+    if hasattr(logp, "ctypes"):
+        cfunc = logp.ctypes
+    elif isinstance(logp, tuple):
+        cfunc, data = logp
+        data_ref = ctypes.byref(data) if data is not None else None
+
+    if cfunc is not None:
+        c_double_p = ctypes.POINTER(ctypes.c_double)
+
+        def eval_row(row: np.ndarray, grad_out: np.ndarray) -> float:
+            lp = ctypes.c_double()
+            rc = cfunc(row.size, row.ctypes.data_as(c_double_p),
+                       grad_out.ctypes.data_as(c_double_p), ctypes.byref(lp),
+                       data_ref)
+            if rc != 0:  # an error code rejects the proposal
+                grad_out[:] = 0.0
+                return -np.inf
+            return lp.value
+    else:
+        def eval_row(row: np.ndarray, grad_out: np.ndarray) -> float:
+            try:
+                lp, grad = logp(row)
+                grad_out[:] = np.asarray(grad, dtype=np.float64)
+                return float(lp)
+            except Exception:
+                # the reference's NoExceptLogpGrad trap (util.hpp:336-346)
+                grad_out[:] = 0.0
+                return -np.inf
+
+    def evaluate(theta: np.ndarray, lps: np.ndarray, grads: np.ndarray) -> None:
+        for i in range(theta.shape[0]):
+            lps[i] = eval_row(theta[i], grads[i])
+
+    return walnuts(host_model(evaluate), fused=True, **kwargs)
+
+
+__all__ = ["host_model", "walnuts", "walnuts_pyfunc"]

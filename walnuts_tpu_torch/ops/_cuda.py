@@ -7,6 +7,12 @@ it includes from ``csrc/``, and of the flags, so an edited kernel or header
 is rebuilt and an unchanged one is reused. Libraries go to
 ``build/walnuts_tpu_torch/`` beside the package. Nothing here runs at
 import time: this module is imported on machines without ``nvcc``.
+
+``build_host`` compiles a plain C or C++ source for the host (``gcc`` /
+``g++``) the same way: hash-named, written atomically into the same
+directory (never beside its source), reused when built. The native Stan
+bridge (``csrc/stan_bridge.cpp``) is built with it, and so are the test
+models of the tests and of ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -180,10 +186,47 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+_HOST_FLAGS = {".c": ("-O2", "-shared", "-fPIC"),
+               ".cpp": ("-O3", "-std=c++17", "-shared", "-fPIC")}
+
+
+def build_host(src, defines=(), libs=()) -> Path:
+    """The shared library of the C (``gcc``) or C++ (``g++``) source
+    ``src``, compiled with ``-D`` ``defines`` and linked with ``libs``
+    (``-ldl``, ...) into ``BUILD_DIR`` if it is not there yet; named by a
+    hash of the source, its quoted includes and the flags. The library is
+    written under a temporary name and renamed into place, so concurrent
+    builds agree. A failed build raises ``RuntimeError``."""
+    src = Path(src).resolve()
+    compiler = "gcc" if src.suffix == ".c" else "g++"
+    flags = _HOST_FLAGS[".c" if src.suffix == ".c" else ".cpp"] + tuple(
+        f"-D{d}" for d in defines)
+    h = hashlib.sha256(" ".join((compiler,) + flags + tuple(libs)).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    out = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src), *libs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{compiler} failed on {src} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what} failed: cudaError_t {err}")
 
 
-__all__ = ["BUILD_DIR", "BUILD_INFO", "build", "check", "library"]
+__all__ = ["BUILD_DIR", "BUILD_INFO", "build", "build_host", "check", "library"]

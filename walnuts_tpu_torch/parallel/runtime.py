@@ -21,8 +21,16 @@ the last draw of every ``thin`` and ``keep_dims`` a subset of the
 dimensions; the preallocated tensor then has only those rows and
 columns.
 
-Not ported yet (ROADMAP.md): a device mesh, the classic path's
-``flatten`` and ``chain_groups``, and checkpointing. The reference's
+``checkpoint`` (a ``parallel.checkpoint.BlockCheckpointer``) persists the
+state between blocks, and ``start_it`` resumes a phase at a checkpointed
+block boundary; nothing but the ``WarmupState`` / ``SampleState`` (and
+``FrozenParams``) carries over from one block to the next, so a resumed
+run is the uninterrupted one bit for bit. With ``batched_groups > 1`` the
+realized cost that sorts the groups is not checkpointed, as in the
+reference: a resumed run sorts its first block by the adapted cost again.
+
+Not ported yet (ROADMAP.md): a device mesh, and the classic path's
+``flatten`` and ``chain_groups``. The reference's
 automatic block-size cap (``_BlockBudget``) exists to keep one jitted TPU
 program under a worker's time limit; eager blocks here have no such
 limit, so it is not ported.
@@ -68,7 +76,9 @@ class RunInfo:
     evaluations (``n_inner_trips``), tier-2 passes (``n_outer_trips``),
     device-to-host reads of loop conditions (``n_syncs``) and blocks run,
     each per phase, and the wall seconds of each phase (host clock, ending
-    on a device synchronize). On the classic path ``n_outer_trips`` counts
+    on a device synchronize). A run resumed from a checkpoint restores
+    every counter, so they cover the whole run; ``seconds`` counts this
+    process only. On the classic path ``n_outer_trips`` counts
     attempts and ``n_inner_trips`` the model evaluations the host asked for:
     masked leapfrog steps, or integrator calls when an integrator runs the
     attempt (``core.transition.TripCounts``).
@@ -287,6 +297,8 @@ def run_warmup(
     runahead: int = 4,
     tier2_every: int = 6,
     batched_groups: int = 1,
+    checkpoint=None,
+    start_it: int = 0,
 ) -> Tuple[WarmupState, Optional[torch.Tensor], Optional[torch.Tensor], RunInfo]:
     """Adaptive warmup with block-synchronous early stopping.
 
@@ -307,6 +319,13 @@ def run_warmup(
     adapted at the draw boundary, and ``integrator`` (see
     ``ops.integrator``) may run each attempt's leapfrog steps. An
     integrator with ``batched=True`` raises ``ValueError``.
+
+    ``checkpoint`` (a ``BlockCheckpointer``) persists the state after
+    blocks; ``start_it`` (a block boundary of a restored checkpoint)
+    resumes there, and the returned draws cover ``[start_it, end)`` only.
+    ``info`` carries the restored RunInfo, so that its counters (and
+    ``converged_warmup``: a warmup that had converged must not adapt on)
+    cover the whole run.
     """
     _refuse_batched_integrator(batched, integrator)
     C, D = state.theta.shape
@@ -332,8 +351,8 @@ def run_warmup(
             return ws, counts
     info = info or RunInfo()
     dev = state.theta.device
-    sink = (_DrawSink(warmup_cfg.max_iter, C, D, state.theta.dtype, dev, 1, None,
-                      direct=batched_groups == 1) if save_warmup else None)
+    sink = (_DrawSink(warmup_cfg.max_iter - start_it, C, D, state.theta.dtype, dev,
+                      1, None, direct=batched_groups == 1) if save_warmup else None)
 
     def run_block(ws: WarmupState, n: int, idx=None):
         if sink is None:
@@ -352,10 +371,10 @@ def run_warmup(
                     & (mrs <= warmup_cfg.step_size_converge_tol))
 
     t0 = time.perf_counter()
-    it = 0
-    converged = False
+    it = start_it
+    converged = bool(info.converged_warmup) if start_it > 0 else False
     cost = None
-    if warmup_cfg.min_iter == 0 and warmup_cfg.max_iter > 0:
+    if warmup_cfg.min_iter == 0 and warmup_cfg.max_iter > 0 and it == 0:
         converged = check()
     try:
         while it < warmup_cfg.max_iter and not converged:
@@ -372,10 +391,17 @@ def run_warmup(
                     batched_groups)
             else:
                 state, res = run_block(state, n)
+            kept = (None, None)  # the block's rows of the saved draws
             if sink is not None:
+                r0 = sink.rows
                 sink.advance(n)
+                kept = (sink.draws[r0:sink.rows], sink.logps[r0:sink.rows])
             info._count("warmup", res)
             it += n
+            if checkpoint is not None:
+                info.warmup_iters = it
+                checkpoint.block("warmup", it, state, info, block_start=it - n,
+                                 theta=kept[0], logp=kept[1])
             if progress is not None:
                 progress("warmup", it)
             if it == next_check and it >= warmup_cfg.min_iter:
@@ -386,6 +412,10 @@ def run_warmup(
     info.seconds["warmup"] += time.perf_counter() - t0
     info.warmup_iters = it
     info.converged_warmup = converged
+    if checkpoint is not None and not info.interrupted:
+        # the final convergence flag, decided after the last block's save:
+        # a resumed converged warmup must not adapt on
+        checkpoint.update_info("warmup", it, info)
     info._fails(state.fails)
     draws, logps = sink.result() if save_warmup else (None, None)
     return state, draws, logps, info
@@ -409,6 +439,8 @@ def run_sampling(
     batched_groups: int = 1,
     thin: int = 1,
     keep_dims=None,
+    checkpoint=None,
+    start_it: int = 0,
 ) -> Tuple[SampleState, torch.Tensor, torch.Tensor, RunInfo]:
     """Fixed-parameter sampling with R-hat early stopping.
 
@@ -443,6 +475,11 @@ def run_sampling(
     pass kernel (CUDA tensors; the plain version on the CPU) with
     ``pass_tile`` chains per CUDA block; the chains are the unfused
     pass's. Off by default, as in the reference; batched only.
+
+    ``checkpoint`` (a ``BlockCheckpointer``) persists the state, the
+    parameters and each block's kept draws (one device-to-host copy a
+    block); ``start_it`` resumes at a checkpointed block boundary, and the
+    draws returned then cover ``[start_it, end)`` only.
     """
     _refuse_batched_integrator(batched, integrator)
     C, D = state.theta.shape
@@ -452,7 +489,7 @@ def run_sampling(
     dtype = state.theta.dtype
     max_error = torch.tensor(sampling_cfg.max_hamiltonian_error, dtype=dtype,
                              device=dev)
-    sink = _DrawSink(sampling_cfg.max_iter, C, D, dtype, dev, thin, keep_dims,
+    sink = _DrawSink(sampling_cfg.max_iter - start_it, C, D, dtype, dev, thin, keep_dims,
                      direct=thin == 1 and keep_dims is None and batched_groups == 1)
     if batched:
         start_blk, sample_blk = make_batched_sample_block(
@@ -515,8 +552,9 @@ def run_sampling(
 
     info = info or RunInfo()
     t0 = time.perf_counter()
-    it = 0
-    converged = False
+    it = start_it
+    # a resumed run that had stopped on R-hat stays stopped
+    converged = bool(info.converged_sampling) if start_it > 0 else False
     cost = None
     try:
         while it < sampling_cfg.max_iter and not converged:
@@ -532,9 +570,16 @@ def run_sampling(
                     state, cost, batched_groups)
             else:
                 state, res = run_block(state, params, n)
+            r0 = sink.rows
             sink.advance(n)
             info._count("sampling", res)
             it += n
+            if checkpoint is not None:
+                info.sampling_iters = it
+                checkpoint.block(
+                    "sampling", it, state, info, block_start=it - n,
+                    theta=sink.draws[r0:sink.rows], logp=sink.logps[r0:sink.rows],
+                    params=params)
             if progress is not None:
                 progress("sampling", it)
             if it == next_check and it >= max(sampling_cfg.min_iter, 2):
@@ -549,6 +594,10 @@ def run_sampling(
     info.seconds["sampling"] += time.perf_counter() - t0
     info.sampling_iters = it
     info.converged_sampling = converged
+    if checkpoint is not None and not info.interrupted:
+        # the final R-hat flag (see run_warmup): an early-stopped run
+        # called again returns the same draws
+        checkpoint.update_info("sampling", it, info)
     info.n_grads = state.n_grads.cpu().numpy()
     info._fails(state.fails)
     draws, logps = sink.result()
