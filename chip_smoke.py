@@ -43,15 +43,22 @@ command-line entry points (each phase's wall is printed):
   block, and resumed: the resumed run's draws, step sizes, inverse metrics
   and ``n_grads`` must be the first run's bit for bit, and kernels 1 and 2
   must run;
+- the mesh path: the checkpoint path's first run again with
+  ``walnuts(mesh=...)``, its chains sharded over a
+  ``DeviceMesh`` named ``"chains"``: as two gloo ranks sharing the card
+  (2048 chains each, each rank a process of this script, run with the
+  hidden ``--mesh-rank`` options) and as one NCCL rank in this process;
+  every rank must return that run's result bit for bit and launch
+  kernels 1 and 2;
 - the host-model path: ``walnuts_stan`` on the eight-schools BridgeStan-ABI
   model (``csrc/abi_models.cpp``, built with ``g++`` with the port's native
-  bridge) x 1024, float64, 30 + 30, against ``walnuts(eight_schools())``
+  bridge) x 1024, float64, 15 + 15, against ``walnuts(eight_schools())``
   at the same seed (0.99 of the chains with equal ``n_grads``, ``mu`` to
   1e-3 on those), and ``walnuts_pyfunc`` with the C callback of
   ``csrc/callback_model.c`` (a standard normal, D = 100) x 256: kernel 1
   must run on both, and the host time of a model call is printed beside
   the trip's;
-- ``walnuts(profile_dir=...)`` on the logistic regression (5 + 5): the trace
+- ``walnuts(profile_dir=...)`` on the logistic regression (2 + 2): the trace
   must name the replay and logistic-regression kernels; beside it ``python
   -m walnuts_tpu_torch.cli`` on funnel(25) x 8 in a subprocess.
 
@@ -60,7 +67,9 @@ posterior mean and sd must agree with NumPy references (a Newton MAP, its Laplac
 importance-reweighted Laplace mean). Kernels 1, 3, 4, 5a and 5b are also
 timed on their own paths, beside the bound of those launches: kernels 1
 and 3 by relaunching every launch of the main path (1) and of the classic
-A/B (3) on its recorded operands under ``torch.profiler``, kernel 4 by
+A/B (3) on its recorded operands under ``torch.profiler`` (kernel 1 also
+on the checkpoint, mesh and host-model paths, and kernel 2, every 50th
+launch, on the checkpoint and mesh paths), kernel 4 by
 relaunching every tenth launch of the fused route on a copy of its lane
 state, 5a and 5b by CUDA events around each launch. An empty kernel is
 timed as kernels 1 and 4 are (the launch floor both sit on), and kernel 4
@@ -75,8 +84,10 @@ failed phase raises (non-zero exit). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
 route, launches on its logistic-regression path (and on the funnel and SV
 paths: ``launches_funnel``, ``launches_sv``, with the time and bound of a
-launch there; on the checkpoint and host-model paths: ``launches_ckpt``,
-``launches_host_model``), error against its plain version, times and bound (the integrator's and the transition kernels' with their
+launch there; on the checkpoint, mesh and host-model paths:
+``launches_ckpt``, ``launches_mesh`` (by rank), ``launches_host_model``,
+with ``path_ms_*`` and ``path_bound_ms_*`` beside them), error against
+its plain version, times and bound (the integrator's and the transition kernels' with their
 logistic-regression body; their three other bodies are checked and printed
 on earlier lines), the logistic-regression kernel's two ``torch.matmul``
 products (``matmul_ms``), the time and bound of a launch on the path
@@ -185,11 +196,26 @@ FUNNEL_SD_TOL = 0.10
 CKPT_ITERS = 10
 CKPT_BLOCK = 5
 CKPT_SEED = SEED + 30
+# kernel 2's launches kept for its time on a path: every LOGREG_KEEP_EVERY-th
+# (0.4 MB of operands each)
+LOGREG_KEEP_EVERY = 50
+# the mesh path: the checkpoint path's run (a) with its chains sharded over
+# MESH_WORLD gloo ranks sharing the one card, each a process of its own,
+# then over one NCCL rank in this process; each run and every collective
+# gets MESH_TIMEOUT_S
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 600
+# the profile_dir run: iterations of warmup and of sampling, cut from 5 to
+# pay for the mesh path (the first iterations hold most trips: 2 + 2 still
+# traces 3/4 of 5 + 5's events)
+PROFILE_ITERS = 2
 # the host-model path: eight schools through the native Stan bridge against
 # autograd (the reference's parity test at the card's width), and a
-# standard normal through walnuts_pyfunc's C callback
+# standard normal through walnuts_pyfunc's C callback; 15 + 15 iterations,
+# cut from 30 + 30 (139-190 s on the card, host-bound) to pay for the mesh
+# path together with PROFILE_ITERS
 HOST_CHAINS = 1024
-HOST_ITERS = 30
+HOST_ITERS = 15
 HOST_SEED = SEED + 40
 HOST_SHARE = 0.99
 PYFUNC_CHAINS = 256
@@ -245,6 +271,12 @@ def profiled_ms(fn, kernel: str, reps: int = 50) -> float | None:
     """Device milliseconds per launch of the kernel whose name contains
     ``kernel``, from a ``torch.profiler`` window around ``reps`` calls of
     ``fn`` alone; None if the profiler saw no such kernel."""
+    return profiled_ms_each(fn, (kernel,), reps)[kernel]
+
+
+def profiled_ms_each(fn, kernels, reps: int = 50) -> dict:
+    """``profiled_ms`` of each of ``kernels`` from one window (a process's
+    first profiler window costs seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -253,11 +285,13 @@ def profiled_ms(fn, kernel: str, reps: int = 50) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [(e.device_time_total, e.count) for e in prof.key_averages()
-            if kernel in e.key and e.device_time_total > 0]
-    if not hits:
-        return None
-    return sum(h[0] for h in hits) / sum(h[1] for h in hits) / 1e3
+    out = {}
+    for kernel in kernels:
+        hits = [(e.device_time_total, e.count) for e in prof.key_averages()
+                if kernel in e.key and e.device_time_total > 0]
+        out[kernel] = (sum(h[0] for h in hits) / sum(h[1] for h in hits) / 1e3
+                       if hits else None)
+    return out
 
 
 def ptxas_report(log: str) -> list:
@@ -925,18 +959,21 @@ def run_main_path(card: str, ref) -> dict:
     return launches, path_replay_ms(card, recording.calls)
 
 
-def path_replay_ms(card: str, calls, path: str = "main path") -> dict:
+def path_replay_ms(card: str, calls, path: str = "main path",
+                   ms: float | None = None) -> dict:
     """Kernel 1 at the main path's own operands: every launch relaunched
     under ``torch.profiler`` (device time of the kernel alone; CUDA events
-    over the relaunches where the profiler sees none), and the bound of
-    those launches."""
+    over the relaunches where the profiler sees none; ``ms`` where a
+    window over several kernels took it), and the bound of those
+    launches."""
     from walnuts_tpu_torch.ops import prng
 
     def relaunch():
         for a in calls:
             prng.replay_split_chain(*a)
 
-    ms = profiled_ms(relaunch, "replay_kernel", reps=1)
+    if ms is None:
+        ms = profiled_ms(relaunch, "replay_kernel", reps=1)
     how = "torch.profiler"
     if ms is None:
         ms = time_ms(relaunch, reps=1, warmup=1) / len(calls)
@@ -951,6 +988,35 @@ def path_replay_ms(card: str, calls, path: str = "main path") -> dict:
           f"relaunched on their own operands ({lanes / len(calls):.0f} lanes a "
           f"launch, n_ends up to {longest}, {hashes / lanes:.3f} hashes a lane "
           f"and launch): "
+          f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
+          f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
+    return dict(path_ms=ms, path_bound_ms=bound_ms)
+
+
+def path_logreg_ms(card: str, calls, path: str, ms: float | None = None) -> dict:
+    """Kernel 2 at a path's own operands: the recorded launches (every
+    LOGREG_KEEP_EVERY-th) relaunched under ``torch.profiler`` (CUDA events
+    where the profiler sees none; ``ms`` as in ``path_replay_ms``), and the
+    bound of a launch: the two products' operations, or theta, X and y
+    read and lp and grad written."""
+    from walnuts_tpu_torch.ops.logreg_fused import logreg_value_grad
+
+    def relaunch():
+        for a in calls:
+            logreg_value_grad(*a)
+
+    if ms is None:
+        ms = profiled_ms(relaunch, "logreg_kernel", reps=1)
+    how = "torch.profiler"
+    if ms is None:
+        ms = time_ms(relaunch, reps=1, warmup=1) / len(calls)
+        how = "CUDA events"
+    chains = sum(a[0].shape[0] for a in calls) / len(calls)
+    rows, dim = calls[0][1].shape
+    bound_ms, bound_by = bound(4.0 * (2 * chains * dim + rows * dim + rows + chains),
+                               4.0 * chains * rows * dim)
+    print(f"[{path}] kernel 2 on the {path}: {len(calls)} of its launches "
+          f"relaunched on their own operands ({chains:.0f} chains a launch): "
           f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
           f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
     return dict(path_ms=ms, path_bound_ms=bound_ms)
@@ -1209,12 +1275,12 @@ def count_attempt_ops(card: str, logp_grad, fused, params, ss) -> None:
 
 class _Recording:
     """Stands in for a kernel's wrapper (an attempt integrator, the
-    replay) and keeps a copy of every call's operands. Its ``launches``
-    is the wrapper's: a wrapper that counts through its module's name
-    for itself counts on."""
+    replay, the logistic regression) and keeps a copy of the operands of
+    every ``every``-th call. Its ``launches`` is the wrapper's: a wrapper
+    that counts through its module's name for itself counts on."""
 
-    def __init__(self, integrator):
-        self.integrator, self.calls = integrator, []
+    def __init__(self, integrator, every: int = 1):
+        self.integrator, self.calls, self.every, self.seen = integrator, [], every, 0
 
     @property
     def launches(self):
@@ -1225,7 +1291,9 @@ class _Recording:
         self.integrator.launches = n
 
     def __call__(self, *args):
-        self.calls.append(tuple(a.clone() for a in args))
+        if self.seen % self.every == 0:
+            self.calls.append(tuple(a.clone() for a in args))
+        self.seen += 1
         return self.integrator(*args)
 
 
@@ -1755,14 +1823,80 @@ class _SaveTimer:
         self.method = method
 
 
-def run_checkpoint_path(card: str) -> dict:
+def _ckpt_kwargs(dim: int) -> dict:
+    """``walnuts``' arguments on the checkpoint path (and the mesh path)."""
+    return dict(fused=True, num_params=dim, num_chains=CHAINS, dtype=torch.float32,
+                seed=CKPT_SEED, device=DEVICE, min_warmup_iter=CKPT_ITERS,
+                max_warmup_iter=CKPT_ITERS, min_sampling_iter=CKPT_ITERS,
+                max_sampling_iter=CKPT_ITERS, block_size=CKPT_BLOCK,
+                max_step_halvings=HALVINGS, save_inv_metric=True, return_info=True)
+
+
+def _result(out, info, wall: float) -> dict:
+    """What the checkpoint and mesh paths compare of a run."""
+    return dict(draws=np.stack([np.asarray(c) for c in out], axis=1),
+                stepsize=np.array([c.warmup.stepsize for c in out]),
+                inv_metric=np.stack([c.warmup.inv_metric for c in out]),
+                n_grads=np.asarray(info.n_grads), wall=np.asarray(wall))
+
+
+def _same(x: dict, y: dict) -> dict:
+    """Which of two runs' results are equal bit for bit."""
+    return {k: bool(np.array_equal(x[k], y[k]))
+            for k in ("draws", "stepsize", "inv_metric", "n_grads")}
+
+
+class _Recorded:
+    """Kernels 1 and 2 recorded while the body runs (every replay launch,
+    every LOGREG_KEEP_EVERY-th logistic-regression launch): ``replay`` and
+    ``logreg`` hold the recordings."""
+
+    def __enter__(self):
+        from walnuts_tpu_torch.ops import logreg_fused, prng
+
+        self._real = prng.replay_split_chain, logreg_fused.logreg_value_grad
+        self.replay = prng.replay_split_chain = _Recording(self._real[0])
+        self.logreg = logreg_fused.logreg_value_grad = _Recording(
+            self._real[1], every=LOGREG_KEEP_EVERY)
+        return self
+
+    def __exit__(self, *exc):
+        from walnuts_tpu_torch.ops import logreg_fused, prng
+
+        prng.replay_split_chain, logreg_fused.logreg_value_grad = self._real
+
+    def path_ms(self, card: str, path: str) -> dict:
+        return recorded_path_ms(card, self.replay.calls, self.logreg.calls, path)
+
+
+def recorded_path_ms(card: str, replay_calls, logreg_calls, path: str) -> dict:
+    """Kernels 1 and 2's time and bound a launch on a recorded path (both
+    relaunched in one profiler window)."""
+    from walnuts_tpu_torch.ops import logreg_fused, prng
+
+    def relaunch():
+        for a in replay_calls:
+            prng.replay_split_chain(*a)
+        for a in logreg_calls:
+            logreg_fused.logreg_value_grad(*a)
+
+    ms = profiled_ms_each(relaunch, ("replay_kernel", "logreg_kernel"), reps=1)
+    return {"replay_split_chain": path_replay_ms(card, replay_calls, path,
+                                                 ms["replay_kernel"]),
+            "logreg_value_grad": path_logreg_ms(card, logreg_calls, path,
+                                                ms["logreg_kernel"])}
+
+
+def run_checkpoint_path(card: str) -> tuple:
     """``walnuts()`` on the main path's model (kernel 2, ``fused=True``) at
     CKPT_ITERS + CKPT_ITERS iterations in blocks of CKPT_BLOCK, three
     times: (a) with no checkpoint; (b) with ``checkpoint_dir``, crashed
     (an exception) right after its first sampling block is saved; (c)
     resumed from (b)'s directory. (a) and (c) must be equal bit for bit:
     draws, step sizes, inverse metrics and ``n_grads``. Returns the
-    launches of kernels 1 and 2 over the three runs."""
+    launches of kernels 1 and 2 over the three runs, their time and bound
+    a launch on (a) (recorded there, relaunched after the three runs), and
+    (a)'s result for the mesh path."""
     import shutil
     import tempfile
 
@@ -1771,11 +1905,7 @@ def run_checkpoint_path(card: str) -> dict:
     from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
 
     logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
-    kw = dict(fused=True, num_params=dim, num_chains=CHAINS, dtype=torch.float32,
-              seed=CKPT_SEED, device=DEVICE, min_warmup_iter=CKPT_ITERS,
-              max_warmup_iter=CKPT_ITERS, min_sampling_iter=CKPT_ITERS,
-              max_sampling_iter=CKPT_ITERS, block_size=CKPT_BLOCK,
-              max_step_halvings=HALVINGS, save_inv_metric=True, return_info=True)
+    kw = _ckpt_kwargs(dim)
 
     def timed(**extra):
         torch.cuda.synchronize()
@@ -1785,7 +1915,8 @@ def run_checkpoint_path(card: str) -> dict:
         return out, time.perf_counter() - t0
 
     _reset_counts()
-    (plain, info_a), wall_a = timed()
+    with _Recorded() as recorded:
+        (plain, info_a), wall_a = timed()
     directory = tempfile.mkdtemp(prefix="walnuts-ckpt-")
     real_block, real_save = BlockCheckpointer.block, BlockCheckpointer.save
     saves = _SaveTimer(real_save)
@@ -1820,18 +1951,11 @@ def run_checkpoint_path(card: str) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"the checkpoint path never launched {name}")
 
-    a = np.stack([np.asarray(c) for c in plain], axis=1)
-    c = np.stack([np.asarray(x) for x in resumed], axis=1)
+    res_a, res_c = _result(plain, info_a, wall_a), _result(resumed, info_c, wall_c)
+    a, c = res_a["draws"], res_c["draws"]
     if a.shape != (CKPT_ITERS, CHAINS, DIM) or not np.isfinite(a).all():
         raise AssertionError(f"checkpoint path: bad draws: shape {a.shape}")
-    same = {
-        "draws": np.array_equal(a, c),
-        "step sizes": [x.warmup.stepsize for x in plain]
-        == [x.warmup.stepsize for x in resumed],
-        "inverse metrics": np.array_equal(np.stack([x.warmup.inv_metric for x in plain]),
-                                          np.stack([x.warmup.inv_metric for x in resumed])),
-        "n_grads": np.array_equal(info_a.n_grads, info_c.n_grads),
-    }
+    same = _same(res_a, res_c)
     chains_same = int(np.all(a == c, axis=(0, 2)).sum())
     print(f"[checkpoint path] logreg({DIM}) x {CHAINS} chains, fused, float32, "
           f"{CKPT_ITERS} + {CKPT_ITERS} iterations, blocks of {CKPT_BLOCK}: (a) "
@@ -1848,7 +1972,131 @@ def run_checkpoint_path(card: str) -> dict:
     if not all(same.values()):
         raise AssertionError("checkpoint path: the resumed run is not the "
                              "uninterrupted one bit for bit")
-    return launches
+    return launches, recorded.path_ms(card, "checkpoint path"), res_a
+
+
+def mesh_rank(card: str, rank: int, world: int, backend: str, init: str) -> dict:
+    """One rank of the mesh path: the checkpoint path's run (a) under
+    ``init_device_mesh("cuda", (world,), mesh_dim_names=("chains",))`` over
+    a ``backend`` process group (rendezvous ``init``), every rank on the
+    one card. Returns the whole result the rank got, its wall, its launches
+    of kernels 1 and 2 (this process's counts) and their recorded operands
+    on its shard (``calls``, for ``recorded_path_ms``)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import walnuts_tpu_torch as wtt
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(torch.device(DEVICE).type, (world,),
+                                mesh_dim_names=("chains",))
+        t_mesh = time.perf_counter() - t_start
+        logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+        _reset_counts()
+        with _Recorded() as recorded:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, info = wtt.walnuts(logp_grad, mesh=mesh, **_ckpt_kwargs(dim))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _counts()
+        print(f"[mesh path] {backend} rank {rank} of {world}, {CHAINS // world} "
+              f"chains: wall {wall:.3f} s (the process group and the mesh "
+              f"{t_mesh:.3f} s before it), launches {json.dumps(launches)}  [{card}]")
+        for name in ("replay_split_chain", "logreg_value_grad"):
+            if launches[name] <= 0:
+                raise AssertionError(f"mesh path: {backend} rank {rank} never "
+                                     f"launched {name}")
+    finally:
+        dist.destroy_process_group()
+    return dict(_result(out, info, wall), launches=launches,
+                calls=(recorded.replay.calls, recorded.logreg.calls))
+
+
+def run_mesh_path(card: str, plain: dict) -> dict:
+    """The checkpoint path's run (a) with its chains sharded: (i) over
+    MESH_WORLD gloo ranks, each a process of this script
+    (``--mesh-rank``), sharing the card (NCCL refuses two ranks on one
+    device); (ii) over one NCCL rank in this process. Every rank's whole
+    result must be (a)'s bit for bit (a chain's arithmetic does not depend
+    on the chain count: kernel 2 sums a chain's rows in a fixed order
+    whatever the batch, kernel 1 is integer work); every rank must launch
+    kernels 1 and 2. Each rank's kernels are timed here after the runs, on
+    the operands it recorded (a gloo rank's through a file: a process's
+    first profiler window costs seconds). Returns the launches and times a
+    launch of each run, by kernel."""
+    import sys
+    import tempfile
+
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="walnuts-mesh-") as d:
+        logs = [os.path.join(d, f"rank{r}.log") for r in range(MESH_WORLD)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(MESH_WORLD):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                         str(r), "--mesh-world", str(MESH_WORLD), "--mesh-init",
+                         f"file://{d}/rendezvous", "--mesh-out", d],
+                        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            while (any(p.poll() is None for p in procs)
+                   and all(p.poll() in (None, 0) for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall_procs = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            with open(logs[r]) as f:
+                text = f.read()
+            if p.returncode != 0:
+                raise AssertionError(f"mesh path: gloo rank {r} exited "
+                                     f"{p.returncode}:\n{text[-6000:]}")
+            print("\n".join(ln for ln in text.splitlines() if ln.startswith("[")))
+            with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+                res = {k: z[k] for k in z.files if k != "meta"}
+                res.update(json.loads(str(z["meta"])))
+            calls = torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=True)
+            res["calls"] = [[tuple(t.to(DEVICE) for t in a) for a in c] for c in calls]
+            results[f"gloo rank {r}"] = res
+    print(f"[mesh path] {MESH_WORLD} gloo ranks: {wall_procs:.3f} s from their "
+          f"start to their end (process start and the kernels' load "
+          f"included)  [{card}]")
+    with tempfile.TemporaryDirectory(prefix="walnuts-nccl-") as d:
+        results["nccl rank 0"] = mesh_rank(card, 0, 1, "nccl", f"file://{d}/rendezvous")
+    bad = []
+    for what, res in results.items():
+        res["path"] = recorded_path_ms(card, *res.pop("calls"), f"mesh path, {what}")
+        same = _same(res, plain)
+        equal = int(np.all(res["draws"] == plain["draws"], axis=(0, 2)).sum())
+        diff = float(np.abs(res["draws"].astype(np.float64) - plain["draws"]).max())
+        print(f"[mesh path] {what}: wall {float(res['wall']):.3f} s against (a)'s "
+              f"{float(plain['wall']):.3f} s; its whole result against (a), bit for "
+              f"bit: {json.dumps(same)}; chains with equal draws {equal} of "
+              f"{CHAINS}, max abs draw difference {diff:.3e}  [{card}]")
+        if not all(same.values()):
+            bad.append(what)
+    if bad:
+        raise AssertionError(f"mesh path: {bad} not (a) bit for bit")
+    return {name: {"launches_mesh": {w: r["launches"][name] for w, r in results.items()},
+                   "path_ms_mesh": {w: r["path"][name]["path_ms"]
+                                    for w, r in results.items()},
+                   "path_bound_ms_mesh": {w: r["path"][name]["path_bound_ms"]
+                                          for w, r in results.items()}}
+            for name in ("replay_split_chain", "logreg_value_grad")}
 
 
 class _HostTimer:
@@ -1883,12 +2131,14 @@ def run_host_model_path(card: str) -> dict:
     data)`` form of ``csrc/callback_model.c`` (a standard normal, D =
     PYFUNC_DIM) x PYFUNC_CHAINS: every coordinate's pooled mean within 0.1
     of 0, its sd within 10 % of 1. Returns kernel 1's launches on the two
-    host-model runs."""
+    host-model runs, and its time and bound a launch there (every launch
+    recorded, relaunched after the runs)."""
     import ctypes
 
     import walnuts_tpu_torch as wtt
     import walnuts_tpu_torch.api as api
     from walnuts_tpu_torch.models import eight_schools
+    from walnuts_tpu_torch.ops import prng
     from walnuts_tpu_torch.ops._cuda import build_host
 
     t0 = time.perf_counter()
@@ -1904,7 +2154,8 @@ def run_host_model_path(card: str) -> dict:
               device=DEVICE, min_warmup_iter=HOST_ITERS, max_warmup_iter=HOST_ITERS,
               min_sampling_iter=HOST_ITERS, max_sampling_iter=HOST_ITERS,
               return_info=True)
-    real = api.host_model
+    real, replay = api.host_model, prng.replay_split_chain
+    recording = prng.replay_split_chain = _Recording(replay)
     timers, launches, walls, infos = [], 0, [], []
     try:
         for what in ("stan", "pyfunc"):
@@ -1933,7 +2184,7 @@ def run_host_model_path(card: str) -> dict:
                 raise AssertionError(f"the {what} run never launched replay_split_chain")
             launches += n
     finally:
-        api.host_model = real
+        api.host_model, prng.replay_split_chain = real, replay
 
     logp, dim = eight_schools(device=DEVICE)
     t0 = time.perf_counter()
@@ -1969,12 +2220,13 @@ def run_host_model_path(card: str) -> dict:
           f"[{sd.min():.4f}, {sd.max():.4f}] (limit 1 +- 0.1)  [{card}]")
     if not np.isfinite(d).all() or np.abs(mean).max() > 0.1 or np.abs(sd - 1).max() > 0.1:
         raise AssertionError("host model path: pyfunc moments off")
-    return {"replay_split_chain": launches}
+    return ({"replay_split_chain": launches},
+            path_replay_ms(card, recording.calls, "host-model path"))
 
 
 def run_profile_and_cli(card: str) -> None:
-    """``walnuts(profile_dir=...)`` on the main path's model (5 + 5
-    iterations): the Chrome trace must name the replay and the
+    """``walnuts(profile_dir=...)`` on the main path's model (PROFILE_ITERS
+    + PROFILE_ITERS iterations): the Chrome trace must name the replay and the
     logistic-regression kernels. Meanwhile ``python -m
     walnuts_tpu_torch.cli`` on funnel(25) x 8 runs in a subprocess: exit 0
     and its table."""
@@ -2011,8 +2263,9 @@ def run_profile_and_cli(card: str) -> None:
             try:
                 wtt.walnuts(logp_grad, fused=True, num_params=dim, num_chains=CHAINS,
                             dtype=torch.float32, seed=SEED + 60, device=DEVICE,
-                            min_warmup_iter=5, max_warmup_iter=5, min_sampling_iter=5,
-                            max_sampling_iter=5, block_size=5,
+                            min_warmup_iter=PROFILE_ITERS, max_warmup_iter=PROFILE_ITERS,
+                            min_sampling_iter=PROFILE_ITERS,
+                            max_sampling_iter=PROFILE_ITERS, block_size=PROFILE_ITERS,
                             max_step_halvings=HALVINGS, profile_dir=d)
             finally:
                 profile.export_chrome_trace = real_export
@@ -2029,7 +2282,8 @@ def run_profile_and_cli(card: str) -> None:
                         found[k] += text.count(k) - tail.count(k)
                     tail = text[-64:]
             size = os.path.getsize(traces[0])
-        print(f"[profile_dir] 5 + 5 iterations with profile_dir: wall {wall:.3f} s, "
+        print(f"[profile_dir] {PROFILE_ITERS} + {PROFILE_ITERS} iterations with "
+              f"profile_dir: wall {wall:.3f} s, "
               f"of which the trace's export {sum(export_s):.3f} s; "
               f"{os.path.basename(traces[0])} {size / 2**20:.1f} MiB, kernel names "
               f"found {json.dumps(found)} (the CLI ran beside it)  [{card}]")
@@ -2099,11 +2353,22 @@ def main() -> None:
     parser.add_argument("--ab", action="store_true",
                         help="sample the fused route's warmed state four times, "
                         "unfused, fused, fused, unfused")
+    parser.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-init", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     card = card_label()
+    if args.mesh_rank is not None:  # a gloo rank of the mesh path
+        res = mesh_rank(card, args.mesh_rank, args.mesh_world, "gloo", args.mesh_init)
+        torch.save([[tuple(t.cpu() for t in a) for a in c] for c in res.pop("calls")],
+                   os.path.join(args.mesh_out, f"rank{args.mesh_rank}.pt"))
+        np.savez(os.path.join(args.mesh_out, f"rank{args.mesh_rank}.npz"),
+                 meta=json.dumps({"launches": res.pop("launches")}), **res)
+        return
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -2173,11 +2438,18 @@ def main() -> None:
         launches_sv=s_launches["fused_pass"],
         path_ms_sv=s_path["fused_pass"]["path_ms"],
         path_bound_ms_sv=s_path["fused_pass"]["path_bound_ms"])
-    c_launches = _phase("checkpoint path", run_checkpoint_path, card)
+    c_launches, c_path, plain = _phase("checkpoint path", run_checkpoint_path, card)
     for name in ("replay_split_chain", "logreg_value_grad"):
-        extra[name]["launches_ckpt"] = c_launches[name]
-    h_launches = _phase("host model path", run_host_model_path, card)
-    extra["replay_split_chain"]["launches_host_model"] = h_launches["replay_split_chain"]
+        extra[name].update(launches_ckpt=c_launches[name],
+                           path_ms_ckpt=c_path[name]["path_ms"],
+                           path_bound_ms_ckpt=c_path[name]["path_bound_ms"])
+    for name, m in _phase("mesh path", run_mesh_path, card, plain).items():
+        extra[name].update(m)
+    h_launches, h_path = _phase("host model path", run_host_model_path, card)
+    extra["replay_split_chain"].update(
+        launches_host_model=h_launches["replay_split_chain"],
+        path_ms_host_model=h_path["path_ms"],
+        path_bound_ms_host_model=h_path["path_bound_ms"])
     _phase("profile_dir and CLI", run_profile_and_cli, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2195,7 +2467,9 @@ def main() -> None:
             "empty_single_ms", "host_ms", "ms_d101", "bound_ms_d101", "ms_d1003",
             "bound_ms_d1003", "launches_funnel", "path_ms_funnel",
             "path_bound_ms_funnel", "launches_sv", "path_ms_sv", "path_bound_ms_sv",
-            "launches_ckpt", "launches_host_model")
+            "launches_ckpt", "path_ms_ckpt", "path_bound_ms_ckpt", "launches_mesh",
+            "path_ms_mesh", "path_bound_ms_mesh", "launches_host_model",
+            "path_ms_host_model", "path_bound_ms_host_model")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

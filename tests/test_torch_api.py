@@ -185,7 +185,7 @@ def test_sv_wide_model_dtype_matches_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("bf16_ends", True), ("flatten", True),
+    ("bf16_ends", True), ("flatten", True),
     ("chain_groups", 2), ("min_latched", 1), ("defer_splits", False),
 ])
 def test_unported_options_raise(option, value):
@@ -198,6 +198,7 @@ def test_unported_options_raise(option, value):
     (dict(num_chains=5, batched_groups=2), "must divide by batched_groups"),
     (dict(thin=0), "thin"),
     (dict(thin=4, block_size=10), "divide block_size"),
+    (dict(mesh=object()), "mesh"),  # not a one-dimensional DeviceMesh
 ])
 def test_reference_refusals(kw, match):
     kw = dict(dict(num_chains=4), **kw)

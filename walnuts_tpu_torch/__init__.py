@@ -7,10 +7,11 @@ JAX package stays as it is and is the reference; this package imports no
 JAX.
 
 Ported so far: the batched-native ``walnuts()`` path (asynchronous
-adaptive warmup and sampling on one device, with ``batched_groups``,
-``model_dtype``, ``thin``, ``keep_dims``, checkpoint and resume
-(``checkpoint_dir``, ``BlockCheckpointer``) and a profiler trace
-(``profile_dir``)) and the classic per-draw path (``batched=False``,
+adaptive warmup and sampling, with ``batched_groups``, ``model_dtype``,
+``thin``, ``keep_dims``, checkpoint and resume (``checkpoint_dir``,
+``BlockCheckpointer``), a profiler trace (``profile_dir``) and chains
+sharded over several devices, one ``torch.distributed`` rank each
+(``mesh``)) and the classic per-draw path (``batched=False``,
 ``integrator=``); the host-model entry points ``walnuts_pyfunc`` (a Python
 callable or a C function) and ``walnuts_stan`` (a compiled BridgeStan
 model through the native bridge, ``csrc/stan_bridge.cpp``); the command

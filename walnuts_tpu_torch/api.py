@@ -1,6 +1,6 @@
 """End-to-end sampling API of the PyTorch port.
 
-Counterpart of ``walnuts_tpu/api.py`` on one device. ``walnuts`` runs by
+Counterpart of ``walnuts_tpu/api.py``. ``walnuts`` runs by
 default the batched-native scheduler (asynchronous adaptive warmup, then
 sampling), with ``batched=False`` or an ``integrator`` the classic
 per-draw path, with checkpoint and resume (``checkpoint_dir``) and a
@@ -14,7 +14,11 @@ batched round trip per model evaluation, as ``models.stan`` does for a
 compiled Stan model.
 
 The device is explicit: everything runs on ``device`` (default
-``"cuda"``), and nothing moves to another device by itself. The seed's
+``"cuda"``), and nothing moves to another device by itself. With a chain
+``mesh`` (a one-dimensional ``torch.distributed`` ``DeviceMesh`` named
+``"chains"``; ``parallel/runtime.py``) every rank calls ``walnuts`` with
+the same arguments, runs its shard of the chains on its own device, and
+gets the whole result. The seed's
 keys and every draw's randomness follow the JAX package's threefry stream,
 so a run can be compared chain by chain with the reference.
 """
@@ -48,9 +52,13 @@ from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
 from walnuts_tpu_torch.parallel.runtime import (
     RunInfo,
     _refuse_groups,
+    _refuse_mesh,
     _refuse_thin,
+    _whole,
+    chain_sharding,
     run_sampling,
     run_warmup,
+    shard_chains,
 )
 from walnuts_tpu_torch.utils.output import (
     WalnutsOutputArray,
@@ -61,7 +69,6 @@ from walnuts_tpu_torch.utils.output import (
 # options of the reference's walnuts() outside this port: the values that
 # select the ported behaviour, and what a user must know otherwise
 _NOT_PORTED = {
-    "mesh": ((None,), "multi-device chain sharding (ROADMAP.md Queue 1, multi-GPU)"),
     "bf16_ends": ((False,), "bfloat16 merge-stack endpoints (ROADMAP.md Queue 1)"),
     "flatten": ((False,), "the flattened classic scheduler (ROADMAP.md Queue 1)"),
     "chain_groups": ((1,), "classic chain groups (ROADMAP.md Queue 1)"),
@@ -118,6 +125,7 @@ def walnuts(
     dtype: Optional[torch.dtype] = None,
     model_dtype: Optional[torch.dtype] = None,
     device="cuda",
+    mesh=None,
     adapt_init_step: bool = True,
     block_size: int = 25,
     return_info: bool = False,
@@ -144,6 +152,17 @@ def walnuts(
 
     - ``device``: where the chains live and every kernel runs
       (default ``"cuda"``; pass ``"cpu"`` to run the plain versions).
+    - ``mesh``: a one-dimensional ``torch.distributed.device_mesh.DeviceMesh``
+      whose dimension is named ``"chains"`` (e.g.
+      ``init_device_mesh("cuda", (N,), mesh_dim_names=("chains",))`` in
+      each of N processes): every rank calls ``walnuts`` with the same
+      arguments, samples its contiguous shard of the chains on the mesh's
+      device (a ``device`` that disagrees raises ``ValueError``), and
+      returns every chain, as without a mesh: a chain's keys, initial
+      point and step size are the ones it gets without a mesh, and only the
+      cross-chain statistics cross ranks (``parallel/runtime.py``).
+      ``num_chains`` must divide by the mesh size; ``batched_groups > 1``
+      requires ``mesh=None``; ``refresh`` prints on rank 0 only.
     - ``dtype``: the sampler's float dtype (default ``torch.float32``).
     - ``model_dtype``: evaluate the model in this dtype while positions,
       momenta and adaptation stay in ``dtype``. A narrower model has its
@@ -199,6 +218,13 @@ def walnuts(
             )
     dtype = dtype or torch.float32
     device = torch.device(device)
+    shard = chain_sharding(mesh)
+    if shard is not None:
+        if device.type != shard.device.type or device.index not in (
+                None, shard.device.index):
+            raise ValueError(f"device {device} disagrees with the mesh's device "
+                             f"{shard.device} on rank {shard.rank}")
+        device = shard.device
     if batched is None:
         # the batched scheduler emits the classic path's draws, so this is
         # a pure scheduling default; an integrator runs on the classic path
@@ -208,6 +234,7 @@ def walnuts(
             f"num_chains must be positive; found num_chains = {num_chains}")
     # the reference raises these at the first block; before any work here
     _refuse_groups(batched, batched_groups, num_chains)
+    _refuse_mesh(shard, batched_groups, num_chains)
     _refuse_thin(thin, block_size)
     if num_params is None:
         if inits is None:
@@ -218,6 +245,11 @@ def walnuts(
         raise ValueError(
             f"num_params must be positive; found num_params = {num_params}")
 
+    # under a mesh every rank draws the keys and initial points of the
+    # whole chain axis and computes the initial masses and step sizes of
+    # its own rows; those are gathered into the whole initial state, which
+    # the runtime shards again
+    rows = slice(None) if shard is None else shard.rows(num_chains)
     user_seed = seed  # None: not reproducible, so any checkpoint may resume
     seed = prepare_seed(seed)
     base_key = prng.key(seed, device)
@@ -271,10 +303,10 @@ def walnuts(
             raise ValueError("init_inv_metric must be finite and positive")
         init_mass = torch.as_tensor(1.0 / inv_metric, dtype=dtype, device=device)
     else:
-        grads = logp_grad(theta0)[1]
-        init_mass = nutpie_init_mass(
+        grads = logp_grad(theta0[rows])[1]
+        init_mass = _whole(nutpie_init_mass(
             grads, torch.tensor(mass_additive_smoothing, dtype=dtype,
-                                device=device))
+                                device=device)), shard)
         if average_masses:
             geo = torch.exp(torch.mean(torch.log(init_mass), dim=0))
             init_mass = geo.expand_as(init_mass).clone()
@@ -295,7 +327,8 @@ def walnuts(
     if adapt_init_step:
         step_keys = prng.fold_in(
             base_key, torch.as_tensor(chain_ids + num_chains, device=device))
-        step0 = adapt_step_size(step_keys, logp_grad, theta0, init_mass, step0)
+        step0 = _whole(adapt_step_size(step_keys[rows], logp_grad, theta0[rows],
+                                       init_mass[rows], step0[rows]), shard)
 
     warmup_cfg = WarmupConfig(
         min_iter=min_warmup_iter,
@@ -326,7 +359,7 @@ def walnuts(
     )
 
     progress = on_r_hat = None
-    if refresh > 0:
+    if refresh > 0 and (shard is None or shard.rank == 0):
         def progress(phase: str, iteration: int) -> None:
             if iteration % refresh == 0 or iteration == 0:
                 tag = "(Warmup)" if phase == "warmup" else "(Sampling)"
@@ -356,7 +389,7 @@ def walnuts(
         }
         ckpt = BlockCheckpointer(checkpoint_dir, every=checkpoint_every,
                                  keep_last_n=checkpoint_keep_last_n,
-                                 fingerprint=fingerprint)
+                                 fingerprint=fingerprint, mesh=mesh)
         if resume:
             resume_meta = ckpt.latest()
         if resume_meta is None:
@@ -389,7 +422,7 @@ def walnuts(
                 integrator=integrator,
                 tier2_every=12 if warmup_tier2_every is None else warmup_tier2_every,
                 batched_groups=batched_groups, checkpoint=ckpt,
-                start_it=start_warmup, info=warmup_info,
+                start_it=start_warmup, info=warmup_info, mesh=mesh,
             )
             if warmup_t is not None:
                 warmup_draws = warmup_t.cpu().numpy()
@@ -403,8 +436,10 @@ def walnuts(
             sstate = None if info.interrupted else init_sample_state(wstate)
             if ckpt is not None and not info.interrupted:
                 # the phase change is durable: a crash before the first
-                # sampling block resumes here, not in warmup
-                ckpt.save("sampling", 0, sstate, info, params=params)
+                # sampling block resumes here, not in warmup (the
+                # checkpointer takes this rank's chains)
+                ckpt.save("sampling", 0, shard_chains(sstate, mesh), info,
+                          params=shard_chains(params, mesh))
 
         if info.interrupted:
             out_dim = num_params if keep_dims is None else len(keep_dims)
@@ -416,7 +451,7 @@ def walnuts(
                 integrator=integrator, runahead=runahead,
                 tier2_every=tier2_every, batched_groups=batched_groups,
                 thin=thin, keep_dims=keep_dims, checkpoint=ckpt,
-                start_it=start_sampling,
+                start_it=start_sampling, mesh=mesh,
             )
             draws = draws_t.cpu().numpy()
             if ckpt is not None and start_sampling:

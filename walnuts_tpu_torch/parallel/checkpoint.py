@@ -18,6 +18,14 @@ middle of a save never corrupts the latest durable checkpoint;
     state_a/ | state_b/       state.pt: the state (and params) as a flat
                               dict of CPU tensors keyed by field path
     blocks/<phase>_<it>.npz   per-block draws and log densities
+
+Under a chain mesh (``BlockCheckpointer(mesh=...)``; see
+``parallel/runtime.py``) the runtime hands every rank's own chains to
+``block`` and ``save``; a save all-gathers them, rank 0 writes the whole
+state once, with the same files and fingerprint as without a mesh, and
+every rank waits for the write to finish. Every rank reads the whole
+checkpoint back (``latest``, ``restore``, ``saved_blocks``), so the
+directory must be one that all ranks see.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from walnuts_tpu_torch.parallel.runtime import RunInfo, _whole, chain_sharding
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -83,6 +93,9 @@ class BlockCheckpointer:
     ``fingerprint`` (any JSON-serialisable value) records the run
     configuration; :meth:`latest` refuses to resume (returns ``None`` with
     a warning, so the caller starts over) when the stored one differs.
+
+    ``mesh``: the run's chain mesh (see the module docstring); ``block``
+    and ``save`` then take this rank's chains.
     """
 
     def __init__(
@@ -91,6 +104,7 @@ class BlockCheckpointer:
         every: int = 1,
         keep_last_n: Optional[int] = None,
         fingerprint=None,
+        mesh=None,
     ):
         if every < 1:
             raise ValueError(f"checkpoint every must be >= 1; got {every}")
@@ -101,21 +115,26 @@ class BlockCheckpointer:
         self.every = every
         self.keep_last_n = keep_last_n
         self.fingerprint = fingerprint
+        self._shard = chain_sharding(mesh)
+        self._writer = self._shard is None or self._shard.rank == 0
         self._blocks_since_save = 0
         self._pending: List[Tuple[str, int, int, Any, Any]] = []
         os.makedirs(os.path.join(self.directory, "blocks"), exist_ok=True)
 
     def reset(self) -> None:
         """Delete any existing checkpoint state (start the run over)."""
-        for name in ("meta.json", "state_a", "state_b", "blocks"):
-            path = os.path.join(self.directory, name)
-            if os.path.isdir(path):
-                shutil.rmtree(path)
-            elif os.path.exists(path):
-                os.remove(path)
-        os.makedirs(os.path.join(self.directory, "blocks"), exist_ok=True)
+        if self._writer:
+            for name in ("meta.json", "state_a", "state_b", "blocks"):
+                path = os.path.join(self.directory, name)
+                if os.path.isdir(path):
+                    shutil.rmtree(path)
+                elif os.path.exists(path):
+                    os.remove(path)
+            os.makedirs(os.path.join(self.directory, "blocks"), exist_ok=True)
         self._pending.clear()
         self._blocks_since_save = 0
+        if self._shard is not None:
+            self._shard.barrier()
 
     # -- write path ------------------------------------------------------
 
@@ -132,14 +151,25 @@ class BlockCheckpointer:
 
     def save(self, phase: str, it: int, state, info, params=None) -> None:
         """Write a durable checkpoint: draw blocks, state slot, meta."""
+        shard = self._shard
+        pending = [(ph, start, end, *_whole((theta, logp), shard, 1))
+                   for ph, start, end, theta, logp in self._pending]
+        state = _whole(state, shard)
+        params = None if params is None else _whole(params, shard)
+        self._pending.clear()
+        self._blocks_since_save = 0
+        if self._writer:
+            self._write(phase, it, state, info, params, pending)
+        if shard is not None:
+            shard.barrier()
+
+    def _write(self, phase: str, it: int, state, info, params, pending) -> None:
         touched_phases = set()
-        for ph, start, end, theta, logp in self._pending:
+        for ph, start, end, theta, logp in pending:
             np.savez(os.path.join(self.directory, "blocks", f"{ph}_{start:08d}.npz"),
                      theta=theta.cpu().numpy(), logp=logp.cpu().numpy(),
                      end=np.asarray(end))
             touched_phases.add(ph)
-        self._pending.clear()
-        self._blocks_since_save = 0
 
         meta = self._read_meta()
         slot = "state_b" if meta and meta.get("slot") == "state_a" else "state_a"
@@ -179,7 +209,7 @@ class BlockCheckpointer:
         no-op unless the durable checkpoint is exactly at ``(phase, it)``
         (otherwise resume runs the tail again and decides the same flags).
         """
-        meta = self._read_meta()
+        meta = self._read_meta() if self._writer else None
         if meta is None or meta["phase"] != phase or meta["it"] != int(it):
             return
         meta["info"] = _info_to_dict(info)
@@ -328,9 +358,7 @@ def _info_to_dict(info) -> dict:
     return d
 
 
-def _info_from_dict(d: dict):
-    from walnuts_tpu_torch.parallel.runtime import RunInfo
-
+def _info_from_dict(d: dict) -> RunInfo:
     info = RunInfo(
         warmup_iters=d["warmup_iters"],
         sampling_iters=d["sampling_iters"],

@@ -29,8 +29,34 @@ run is the uninterrupted one bit for bit. With ``batched_groups > 1`` the
 realized cost that sorts the groups is not checkpointed, as in the
 reference: a resumed run sorts its first block by the adapted cost again.
 
-Not ported yet (ROADMAP.md): a device mesh, and the classic path's
-``flatten`` and ``chain_groups``. The reference's
+``mesh`` (a one-dimensional ``torch.distributed`` ``DeviceMesh`` whose
+dimension is named ``CHAIN_AXIS``) shards the chains over processes, one
+rank per device, in place of the reference's single-controller
+``jax.sharding.Mesh``. Every rank calls the same function with the same
+WHOLE chain-batched state; it runs the contiguous shard of chains that
+``chain_sharding`` names (``shard_chains``) and returns the whole result
+in chain order, as the reference returns global arrays. Only the
+cross-chain statistics cross ranks between blocks: the per-chain inputs
+of the convergence checks are all-gathered and reduced exactly as
+without a mesh (never partial sums, whose summation order would differ),
+so every rank takes the same early-stop decision at the same boundary,
+and a per-chain result does not depend on the mesh. At each block
+boundary the ranks also agree on an interrupt (an all-reduce MAX of a
+flag, ``_Interrupts``): a ``KeyboardInterrupt`` from ``progress`` on one
+rank, or a SIGINT that the main thread holds while a block runs, stops
+every rank at that boundary. At the end the state, the draws and the per-chain counters are
+all-gathered. The host counters of ``RunInfo`` (trips, syncs, blocks,
+seconds) stay each rank's own.
+
+The collectives follow one rule under either backend: tensors on the
+rank's device (CUDA under a ``"cuda"`` mesh), list-form ``all_gather``
+and ``all_reduce`` only, on the mesh's group. NCCL runs them on the card;
+gloo (CPU ranks, or several ranks sharing one card, which NCCL refuses)
+stages CUDA tensors through host memory. A collective that fails raises;
+so does the next collective of every rank when another rank has died.
+
+Not ported yet (ROADMAP.md): the classic path's ``flatten`` and
+``chain_groups``. The reference's
 automatic block-size cap (``_BlockBudget``) exists to keep one jitted TPU
 program under a worker's time limit; eager blocks here have no such
 limit, so it is not ported.
@@ -38,12 +64,15 @@ limit, so it is not ported.
 
 from __future__ import annotations
 
+import signal
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
 from walnuts_tpu_torch.core.adapt import (
@@ -64,6 +93,96 @@ from walnuts_tpu_torch.core.sampler import (
 )
 from walnuts_tpu_torch.core.transition import FailStats, TripCounts
 from walnuts_tpu_torch.ops.math import LogpGradFn
+
+CHAIN_AXIS = "chains"
+
+
+@dataclass(frozen=True)
+class ChainSharding:
+    """This rank's part of a chain axis sharded over a one-dimensional
+    device mesh: rank ``rank`` of ``size`` runs the contiguous chains
+    ``rows(num_chains)`` on ``device`` and reaches the other ranks over
+    ``group`` (see the module docstring for the collectives' rule)."""
+
+    rank: int
+    size: int
+    device: torch.device
+    group: object
+
+    def rows(self, num_chains: int) -> slice:
+        if num_chains % self.size:
+            raise ValueError(f"num_chains ({num_chains}) must divide by the mesh "
+                             f"size ({self.size})")
+        n = num_chains // self.size
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim``, in rank order."""
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank."""
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t.item())
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+
+def chain_sharding(mesh) -> Optional[ChainSharding]:
+    """The ``ChainSharding`` of this process under ``mesh`` (a
+    one-dimensional ``DeviceMesh`` whose dimension is named
+    ``CHAIN_AXIS``, on ``"cuda"``, the rank's current device, or
+    ``"cpu"``); None for None. Anything else raises ``ValueError``."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if (not isinstance(mesh, DeviceMesh) or mesh.ndim != 1
+            or mesh.mesh_dim_names != (CHAIN_AXIS,)
+            or mesh.device_type not in ("cuda", "cpu")):
+        raise ValueError(
+            f"mesh must be a one-dimensional torch.distributed DeviceMesh on "
+            f"'cuda' or 'cpu' whose dimension is named {CHAIN_AXIS!r}; got {mesh!r}")
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    group = mesh.get_group(CHAIN_AXIS)
+    # the group's rank orders the gathers, so it also places the rows
+    return ChainSharding(rank=dist.get_rank(group), size=mesh.size(),
+                         device=device, group=group)
+
+
+def _map(fn, tree):
+    """``fn`` on every tensor of a tree of tuples and NamedTuples."""
+    if isinstance(tree, tuple):
+        parts = [_map(fn, t) for t in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return fn(tree)
+
+
+def _local(tree, shard: Optional[ChainSharding]):
+    """The rows of ``shard`` of a chain-batched tree, on its device."""
+    if shard is None:
+        return tree
+    return _map(lambda x: x[shard.rows(x.shape[0])].to(shard.device), tree)
+
+
+def _whole(tree, shard: Optional[ChainSharding], dim: int = 0):
+    """Every rank's chains of a chain-batched tree (chain axis ``dim``)."""
+    if shard is None:
+        return tree
+    return _map(lambda x: shard.gather(x, dim), tree)
+
+
+def shard_chains(tree, mesh):
+    """This rank's rows of a chain-batched tree (NamedTuples of tensors
+    with a leading chain axis) on its device under ``mesh``; ``tree``
+    itself for None."""
+    return _local(tree, chain_sharding(mesh))
 
 
 @dataclass
@@ -112,26 +231,32 @@ class RunInfo:
         self.n_depth_exhausted = fails.n_depth_exhausted.cpu().numpy()
 
 
-def _warmup_convergence_stats(state: WarmupState) -> Tuple[torch.Tensor, torch.Tensor]:
+def _warmup_convergence_stats(state: WarmupState, shard: Optional[ChainSharding] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Max relative L2 distance of the per-chain mass diagonal from the
     cross-chain geometric mean, and max signed relative difference of the
-    step size from its geometric mean (adapt.hpp:203-225)."""
-    inv_mass = mass_estimator_inv_mass(state.mass)  # (C, D)
+    step size from its geometric mean (adapt.hpp:203-225), over every
+    rank's chains."""
+    inv_mass = _whole(mass_estimator_inv_mass(state.mass), shard)  # (C, D)
     log_mass = -torch.log(inv_mass)
     geo_mass = torch.exp(torch.mean(log_mass, dim=0))
     mass = torch.exp(log_mass)
     rel_mass = torch.linalg.vector_norm((mass - geo_mass) / geo_mass, dim=1)
-    log_step = state.adam.log_step
+    log_step = _whole(state.adam.log_step, shard)
     geo_step = torch.exp(torch.mean(log_step))
     rel_step = (torch.exp(log_step) - geo_step) / geo_step
     return torch.max(rel_mass), torch.max(rel_step)
 
 
-def _sampling_rhat(state: SampleState) -> torch.Tensor:
+def _sampling_rhat(state: SampleState, shard: Optional[ChainSharding] = None
+                   ) -> torch.Tensor:
     """Split-free R-hat of the draw log densities (sampler.hpp:142-145):
-    ``sqrt(1 + var(chain means) / mean(chain vars))``, sample variances."""
-    variances = state.lp_m2 / torch.clamp_min(state.lp_count - 1.0, 1.0)
-    var_of_means = torch.var(state.lp_mean, correction=1)
+    ``sqrt(1 + var(chain means) / mean(chain vars))``, sample variances,
+    over every rank's chains."""
+    lp_count, lp_mean, lp_m2 = (_whole(x, shard)
+                                for x in (state.lp_count, state.lp_mean, state.lp_m2))
+    variances = lp_m2 / torch.clamp_min(lp_count - 1.0, 1.0)
+    var_of_means = torch.var(lp_mean, correction=1)
     return torch.sqrt(1.0 + var_of_means / torch.mean(variances))
 
 
@@ -166,6 +291,67 @@ def _refuse_groups(batched: bool, batched_groups: int, num_chains: int) -> None:
     if batched_groups > 1 and num_chains % batched_groups:
         raise ValueError(f"num_chains ({num_chains}) must divide by "
                          f"batched_groups ({batched_groups})")
+
+
+def _refuse_mesh(shard: Optional[ChainSharding], batched_groups: int,
+                 num_chains: int) -> None:
+    if shard is None:
+        return
+    if batched_groups > 1:
+        raise ValueError("batched_groups > 1 requires mesh=None (the per-block "
+                         "cost sort runs over the whole chain axis)")
+    shard.rows(num_chains)  # raises unless the mesh divides the chains
+
+
+class _Interrupts:
+    """A phase loop's interrupts. A ``KeyboardInterrupt`` ends the phase
+    and keeps the state reached so far (``info.interrupted``): without a
+    mesh wherever it lands; under a mesh at a block boundary only, where
+    the ranks agree to stop (``stop_here``). There SIGINT on the main
+    thread is held while a block runs, and a ``KeyboardInterrupt`` raised
+    inside a block propagates: one rank stopping alone would leave the
+    others waiting at their next collective."""
+
+    def __init__(self, shard: Optional[ChainSharding], info: RunInfo):
+        self.shard, self.info, self.held = shard, info, False
+        self._on = (shard is not None
+                    and threading.current_thread() is threading.main_thread())
+        self._old = None
+
+    def _hold(self, signum, frame) -> None:
+        self.held = True
+
+    def __enter__(self) -> "_Interrupts":
+        if self._on:
+            self._old = signal.signal(signal.SIGINT, self._hold)
+        return self
+
+    def __exit__(self, kind, exc, tb) -> bool:
+        if self._on:
+            signal.signal(signal.SIGINT, signal.default_int_handler
+                          if self._old is None else self._old)
+        if (self.shard is None and kind is not None
+                and issubclass(kind, KeyboardInterrupt)):
+            self.info.interrupted = True
+            return True
+        return False
+
+    def stop_here(self, progress, phase: str, it: int) -> bool:
+        """Calls ``progress(phase, it)`` at a block boundary; whether the
+        phase stops here: the call raised ``KeyboardInterrupt``, or a
+        SIGINT was held, on any rank."""
+        stop = False
+        if progress is not None:
+            try:
+                progress(phase, it)
+            except KeyboardInterrupt:
+                stop = True
+        stop = stop or self.held
+        if self.shard is not None:
+            stop = self.shard.any(stop)
+        if stop:
+            self.info.interrupted = True
+        return stop
 
 
 def _refuse_thin(thin: int, block_size: int) -> None:
@@ -299,6 +485,7 @@ def run_warmup(
     batched_groups: int = 1,
     checkpoint=None,
     start_it: int = 0,
+    mesh=None,
 ) -> Tuple[WarmupState, Optional[torch.Tensor], Optional[torch.Tensor], RunInfo]:
     """Adaptive warmup with block-synchronous early stopping.
 
@@ -326,8 +513,17 @@ def run_warmup(
     ``info`` carries the restored RunInfo, so that its counters (and
     ``converged_warmup``: a warmup that had converged must not adapt on)
     cover the whole run.
+
+    ``mesh`` (see the module docstring): every rank passes the whole
+    ``state``, runs its shard of the chains, and gets the whole state,
+    draws and per-chain counters back. ``checkpoint`` then takes the
+    rank's chains (``BlockCheckpointer(mesh=...)`` gathers them).
+    ``batched_groups > 1`` requires ``mesh=None``.
     """
     _refuse_batched_integrator(batched, integrator)
+    shard = chain_sharding(mesh)
+    _refuse_mesh(shard, batched_groups, state.theta.shape[0])
+    state = _local(state, shard)
     C, D = state.theta.shape
     _refuse_groups(batched, batched_groups, C)
     if batched:
@@ -366,7 +562,7 @@ def run_warmup(
         return ws, res
 
     def check() -> bool:
-        mrm, mrs = _warmup_convergence_stats(state)
+        mrm, mrs = _warmup_convergence_stats(state, shard)
         return bool((mrm <= warmup_cfg.mass_converge_tol)
                     & (mrs <= warmup_cfg.step_size_converge_tol))
 
@@ -376,7 +572,7 @@ def run_warmup(
     cost = None
     if warmup_cfg.min_iter == 0 and warmup_cfg.max_iter > 0 and it == 0:
         converged = check()
-    try:
+    with _Interrupts(shard, info) as interrupts:
         while it < warmup_cfg.max_iter and not converged:
             next_check = _next_boundary(it, warmup_cfg.min_iter,
                                         warmup_cfg.block_size,
@@ -402,12 +598,10 @@ def run_warmup(
                 info.warmup_iters = it
                 checkpoint.block("warmup", it, state, info, block_start=it - n,
                                  theta=kept[0], logp=kept[1])
-            if progress is not None:
-                progress("warmup", it)
+            if interrupts.stop_here(progress, "warmup", it):
+                break
             if it == next_check and it >= warmup_cfg.min_iter:
                 converged = check()
-    except KeyboardInterrupt:
-        info.interrupted = True
     _sync(dev)
     info.seconds["warmup"] += time.perf_counter() - t0
     info.warmup_iters = it
@@ -416,8 +610,9 @@ def run_warmup(
         # the final convergence flag, decided after the last block's save:
         # a resumed converged warmup must not adapt on
         checkpoint.update_info("warmup", it, info)
+    state = _whole(state, shard)
     info._fails(state.fails)
-    draws, logps = sink.result() if save_warmup else (None, None)
+    draws, logps = _whole(sink.result(), shard, 1) if save_warmup else (None, None)
     return state, draws, logps, info
 
 
@@ -441,6 +636,7 @@ def run_sampling(
     keep_dims=None,
     checkpoint=None,
     start_it: int = 0,
+    mesh=None,
 ) -> Tuple[SampleState, torch.Tensor, torch.Tensor, RunInfo]:
     """Fixed-parameter sampling with R-hat early stopping.
 
@@ -480,8 +676,14 @@ def run_sampling(
     parameters and each block's kept draws (one device-to-host copy a
     block); ``start_it`` resumes at a checkpointed block boundary, and the
     draws returned then cover ``[start_it, end)`` only.
+
+    ``mesh``: as in ``run_warmup``; ``state`` and ``params`` are whole on
+    every rank, and so are the returned state, draws and counters.
     """
     _refuse_batched_integrator(batched, integrator)
+    shard = chain_sharding(mesh)
+    _refuse_mesh(shard, batched_groups, state.theta.shape[0])
+    state, params = _local(state, shard), _local(params, shard)
     C, D = state.theta.shape
     _refuse_groups(batched, batched_groups, C)
     _refuse_thin(thin, sampling_cfg.block_size)
@@ -510,8 +712,10 @@ def run_sampling(
                              max_error, n, out=out)
             sink.commit(out, idx)
             # Chan et al. merge of the block's per-lane log-density stats
-            # into the running Welford (the classic per-draw statistics)
-            lps = res.logps.T  # (C, n)
+            # into the running Welford (the classic per-draw statistics);
+            # contiguous rows, so that a lane's sums do not depend on the
+            # chain count (a strided reduction's order does, on the CPU)
+            lps = res.logps.T.contiguous()  # (C, n)
             cnt_b = float(n)
             mean_b = torch.mean(lps, dim=1)
             m2_b = torch.sum((lps - mean_b[:, None]) ** 2, dim=1)
@@ -556,7 +760,7 @@ def run_sampling(
     # a resumed run that had stopped on R-hat stays stopped
     converged = bool(info.converged_sampling) if start_it > 0 else False
     cost = None
-    try:
+    with _Interrupts(shard, info) as interrupts:
         while it < sampling_cfg.max_iter and not converged:
             next_check = _next_boundary(it, sampling_cfg.min_iter,
                                         sampling_cfg.block_size,
@@ -580,16 +784,14 @@ def run_sampling(
                     "sampling", it, state, info, block_start=it - n,
                     theta=sink.draws[r0:sink.rows], logp=sink.logps[r0:sink.rows],
                     params=params)
-            if progress is not None:
-                progress("sampling", it)
+            if interrupts.stop_here(progress, "sampling", it):
+                break
             if it == next_check and it >= max(sampling_cfg.min_iter, 2):
-                r = float(_sampling_rhat(state))
+                r = float(_sampling_rhat(state, shard))
                 info.rhat_trace.append(r)
                 if on_r_hat is not None:
                     on_r_hat(r)
                 converged = r <= sampling_cfg.rhat_converge_tol
-    except KeyboardInterrupt:
-        info.interrupted = True
     _sync(dev)
     info.seconds["sampling"] += time.perf_counter() - t0
     info.sampling_iters = it
@@ -598,10 +800,19 @@ def run_sampling(
         # the final R-hat flag (see run_warmup): an early-stopped run
         # called again returns the same draws
         checkpoint.update_info("sampling", it, info)
+    state = _whole(state, shard)
     info.n_grads = state.n_grads.cpu().numpy()
     info._fails(state.fails)
-    draws, logps = sink.result()
+    draws, logps = _whole(sink.result(), shard, 1)
     return state, draws, logps, info
 
 
-__all__ = ["RunInfo", "run_sampling", "run_warmup"]
+__all__ = [
+    "CHAIN_AXIS",
+    "ChainSharding",
+    "RunInfo",
+    "chain_sharding",
+    "run_sampling",
+    "run_warmup",
+    "shard_chains",
+]
