@@ -2,8 +2,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version at the main path's shapes, then drives six paths of the port on
-adaptive WALNUTS: four on the 25-coefficient logistic regression (1000
+version at the main path's shapes, then drives seven paths of the port on
+adaptive WALNUTS: five on the 25-coefficient logistic regression (1000
 rows) with the fused model kernel, 4096 chains, float32, two on the
 bench's other models, then the checkpoint, host-model, trace and
 command-line entry points (each phase's wall is printed):
@@ -19,6 +19,17 @@ command-line entry points (each phase's wall is printed):
   iterations) with the fused leapfrog integrator, which must launch once
   per attempt; then 20 classic sampling iterations from the fused route's
   warmed state with the kernel and with the plain integrator, for an A/B;
+- the options path, from the same warmed state: ``run_sampling`` of 10
+  iterations in blocks of 5 once per scheduler option and runtime keyword,
+  each bit for bit its reference route: the batched runs (kernels 1 and 2;
+  ``min_latched``, ``defer_splits=False``, ``pallas_replay``,
+  ``fresh_cur``, ``bounded_sweeps``, ``device_draws=False`` (draws on the
+  host), a ``block_budget`` that caps the blocks) against the default
+  batched run, the classic runs with kernel 3 (``flatten``,
+  ``chain_groups=4``; off the card the latter to rtol and atol 1e-5)
+  against the classic run, and the batched ``bf16_ends`` run against the classic one
+  (kernel 3 evaluating the model in both); before them the card's
+  bfloat16 rounding against the CPU's on 10^6 values;
 - the transition path, from the same warmed state (its step sizes, inverse
   masses and ``min_micro``): 50 draws through ``make_fused_transition``
   (momenta, the logistic-regression kernel for the start point, one launch
@@ -58,7 +69,7 @@ command-line entry points (each phase's wall is printed):
   ``csrc/callback_model.c`` (a standard normal, D = 100) x 256: kernel 1
   must run on both, and the host time of a model call is printed beside
   the trip's;
-- ``walnuts(profile_dir=...)`` on the logistic regression (2 + 2): the trace
+- ``walnuts(profile_dir=...)`` on the logistic regression (1 + 1): the trace
   must name the replay and logistic-regression kernels; beside it ``python
   -m walnuts_tpu_torch.cli`` on funnel(25) x 8 in a subprocess.
 
@@ -68,24 +79,29 @@ importance-reweighted Laplace mean). Kernels 1, 3, 4, 5a and 5b are also
 timed on their own paths, beside the bound of those launches: kernels 1
 and 3 by relaunching every launch of the main path (1) and of the classic
 A/B (3) on its recorded operands under ``torch.profiler`` (kernel 1 also
-on the checkpoint, mesh and host-model paths, and kernel 2, every 50th
-launch, on the checkpoint and mesh paths), kernel 4 by
+on the options, checkpoint, mesh and host-model paths, kernel 2, every
+50th launch, on the options, checkpoint and mesh paths, and kernel 3,
+every 4th launch, on the options path), kernel 4 by
 relaunching every tenth launch of the fused route on a copy of its lane
 state, 5a and 5b by CUDA events around each launch. An empty kernel is
 timed as kernels 1 and 4 are (the launch floor both sit on), and kernel 4
 is traced once at each width (its chains' phases on the card's clock).
 
-Run from the root of a checkout:  python3 chip_smoke.py [--profile] [--ab]
+Run from the root of a checkout:  python3 chip_smoke.py [--profile] [--ab] [--options]
 
 ``--profile`` adds a ``torch.profiler`` window over a short run and prints
 device time by kernel. ``--ab`` samples the fused route's warmed state four
-times, unfused, fused, fused, unfused, for an A/B of the two passes. Any
+times, unfused, fused, fused, unfused, for an A/B of the two passes.
+``--options`` runs the options path alone (kernels 1, 2 and 3 built, the
+fused route's warmed state, then the phase; a few minutes) and prints its
+result as the last line. Any
 failed phase raises (non-zero exit). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
 route, launches on its logistic-regression path (and on the funnel and SV
 paths: ``launches_funnel``, ``launches_sv``, with the time and bound of a
-launch there; on the checkpoint, mesh and host-model paths:
-``launches_ckpt``, ``launches_mesh`` (by rank), ``launches_host_model``,
+launch there; on the options, checkpoint, mesh and host-model paths:
+``launches_options``, ``launches_ckpt``, ``launches_mesh`` (by rank),
+``launches_host_model``,
 with ``path_ms_*`` and ``path_bound_ms_*`` beside them), error against
 its plain version, times and bound (the integrator's and the transition kernels' with their
 logistic-regression body; their three other bodies are checked and printed
@@ -126,6 +142,16 @@ HALVINGS = 8
 # and sampling iterations of each run of the fused route
 MAIN_ITERS = 30
 CLASSIC_ITERS = 20
+# the options path: sampling runs of OPTIONS_ITERS in blocks of OPTIONS_BLOCK
+# from the fused route's warmed state
+OPTIONS_ITERS = 10
+OPTIONS_BLOCK = 5
+OPTIONS_MIN_LATCHED = 1024
+OPTIONS_GROUPS = 4
+# (rtol, atol) of chain_groups' draws off the card (a plain model's matrix
+# product sums in another order at another width); on the card, bit for bit
+OPTIONS_GROUPS_TOL = (1e-5, 1e-5)
+OPTIONS_K3_EVERY = 4  # kernel 3's launches kept for path_integrator_ms
 ROUTE_ITERS = 25
 # the transition path: draws through the single-transition kernel, launches
 # and draws per launch of the sample-block kernel, draws of each in the A/B
@@ -208,7 +234,7 @@ MESH_TIMEOUT_S = 600
 # the profile_dir run: iterations of warmup and of sampling, cut from 5 to
 # pay for the mesh path (the first iterations hold most trips: 2 + 2 still
 # traces 3/4 of 5 + 5's events)
-PROFILE_ITERS = 2
+PROFILE_ITERS = 1
 # the host-model path: eight schools through the native Stan bridge against
 # autograd (the reference's parity test at the card's width), and a
 # standard normal through walnuts_pyfunc's C callback; 15 + 15 iterations,
@@ -1124,7 +1150,7 @@ def warmed_state(warmup: int = 50):
     scfg = SamplingConfig(min_iter=ROUTE_ITERS, max_iter=ROUTE_ITERS,
                           block_size=50, max_step_halvings=HALVINGS)
     ws = _start_state(logp_grad, dim, SEED + 1, wcfg, scfg)
-    return run_warmup(logp_grad, ws, wcfg, scfg, tier2_every=12)[0]
+    return run_warmup(logp_grad, ws, wcfg, scfg, batched=True, tier2_every=12)[0]
 
 
 def run_fused_route(card: str, ref, warmup: int = 50,
@@ -1161,7 +1187,8 @@ def run_fused_route(card: str, ref, warmup: int = 50,
         _reset_counts()
         t0 = time.perf_counter()
         try:
-            _, d, _, info = run_sampling(logp_grad, ss, params, scfg,
+            _, d, _, info = run_sampling(logp_grad, ss, params, scfg, batched=True,
+                                         device_draws=True,
                                          pallas_pass=name == "fused")
             torch.cuda.synchronize()
         finally:
@@ -1297,11 +1324,12 @@ class _Recording:
         return self.integrator(*args)
 
 
-def path_integrator_ms(card: str, fused, calls) -> dict:
-    """Kernel 3 at the classic path's own operands: every launch of the
-    kernel route relaunched under ``torch.profiler`` (device time of the
-    kernel alone; CUDA events over the relaunches where the profiler sees
-    none), and the bound of those launches' steps."""
+def path_integrator_ms(card: str, fused, calls, tag: str = "classic A/B",
+                       path: str = "classic path", which: str = "the kernel route's") -> dict:
+    """Kernel 3 at a path's own operands (the classic path's by default):
+    the recorded launches (``which``) relaunched under ``torch.profiler``
+    (device time of the kernel alone; CUDA events over the relaunches where
+    the profiler sees none), and the bound of those launches' steps."""
     def relaunch():
         for a in calls:
             fused(*a)
@@ -1312,12 +1340,13 @@ def path_integrator_ms(card: str, fused, calls) -> dict:
         ms = time_ms(relaunch, reps=1, warmup=1) / len(calls)
         how = "CUDA events"
     steps = sum(int(a[3].sum()) for a in calls)
-    nbytes = 4.0 * (7 * CHAINS * DIM + 3 * CHAINS + ROWS * DIM + ROWS) * len(calls)
+    chains = sum(a[0].shape[0] for a in calls)
+    nbytes = 4.0 * ((7 * DIM + 3) * chains + (ROWS * DIM + ROWS) * len(calls))
     bound_ms, bound_by = bound(nbytes, float(steps) * (7 * DIM + 4 * ROWS * DIM))
     bound_ms /= len(calls)
-    print(f"[classic A/B] kernel 3 on the classic path: the kernel route's "
+    print(f"[{tag}] kernel 3 on the {path}: {which} "
           f"{len(calls)} launches relaunched on their own operands ({steps} chain "
-          f"steps, {steps / len(calls) / CHAINS:.2f} a chain and launch): "
+          f"steps, {steps / chains:.2f} a chain and launch): "
           f"{ms:.4f} ms a launch ({how}); bound {bound_ms * 1e3:.3f} us a launch "
           f"({bound_by}), {bound_ms / ms:.4f} of it  [{card}]")
     return dict(path_ms=ms, path_bound_ms=bound_ms)
@@ -1356,7 +1385,7 @@ def run_classic_ab(card: str, ws) -> tuple:
         fused.launches = 0
         t0 = time.perf_counter()
         st, d, _, info = run_sampling(logp_grad, ss, params, scfg, batched=False,
-                                      integrator=integrator)
+                                      device_draws=True, integrator=integrator)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[name] = (st.key.cpu().numpy(), info.n_grads, d.cpu().numpy(), wall)
@@ -1380,6 +1409,216 @@ def run_classic_ab(card: str, ws) -> tuple:
     path = path_integrator_ms(card, fused, recording.calls)
     # info.n_grads goes on from the warmed state's counts
     return wall_k, float(np.sum(g_k)) - float(ss.n_grads.sum()), path
+
+
+def check_bf16_rounding(card: str) -> None:
+    """``round_bf16`` (``bf16_ends``' rounding) on the card against the CPU:
+    10^6 random values over 40 binades and values beside bfloat16's
+    midpoints, in float32 and float64: equal bit for bit."""
+    from walnuts_tpu_torch.core.transition import round_bf16
+
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal(10**6) * np.exp(rng.uniform(-20, 20, 10**6))
+    mid = np.arange(1, 4097, dtype=np.float64) * 2.0**-7 + 2.0**-8 + 1.0
+    x = np.concatenate([x, mid, np.nextafter(mid, 0), np.nextafter(mid, 4), -mid])
+    same = {}
+    for dtype in (torch.float32, torch.float64):
+        v = torch.from_numpy(x).to(dtype)
+        same[str(dtype).removeprefix("torch.")] = bool(torch.equal(
+            round_bf16(v), round_bf16(v.to(DEVICE)).cpu()))
+    print(f"[options path] bfloat16 round trip of {x.size} values, the card's "
+          f"against the CPU's, bitwise: {json.dumps(same)}  [{card}]")
+    if not all(same.values()):
+        raise AssertionError("bf16 rounding on the card differs from the CPU's")
+
+
+def _k3_value_grad(fused):
+    """The model's value and gradient by kernel 3's own body: one leapfrog
+    step of size 0 from ``(theta, 0, 0)`` leaves theta as it is and
+    evaluates the body there, so a transition's start point has the same
+    bits whether the classic path re-evaluates it or the flattened sampler
+    caches it from an attempt."""
+    consts = {}
+
+    def value_grad(theta):
+        c, d = theta.shape
+        if c not in consts:
+            consts[c] = (torch.ones((c, d), dtype=theta.dtype, device=theta.device),
+                         torch.zeros((c,), dtype=theta.dtype, device=theta.device),
+                         torch.ones((c,), dtype=torch.int32, device=theta.device))
+        ones, zero, one = consts[c]
+        cur = torch.stack([theta, torch.zeros_like(theta), torch.zeros_like(theta)], 1)
+        out, lp = fused(cur, ones, zero, one)
+        return lp, out[:, 2]
+
+    return value_grad
+
+
+class _Depths:
+    """Stands in for ``runtime.make_batched_sample_block`` and keeps each
+    sampling block's depths (``run_sampling`` returns draws and log
+    densities only)."""
+
+    def __init__(self, factory):
+        self.factory, self.depths = factory, []
+
+    def __call__(self, *args, **kwargs):
+        start, sample = self.factory(*args, **kwargs)
+
+        def kept(*a, **k):
+            res = sample(*a, **k)
+            self.depths.append(res.depths.cpu().numpy())
+            return res
+
+        return start, kept
+
+
+def run_options_path(card: str, ws) -> dict:
+    """The scheduler options and runtime keywords on the main path's model
+    at full width, from the fused route's warmed state ``ws``: one
+    sampling run of OPTIONS_ITERS iterations in blocks of OPTIONS_BLOCK
+    per option, each held to its reference route. The batched runs (kernel
+    2 for the model, kernel 1 in every pass, or in every trip with
+    ``defer_splits=False``) against the default batched run A; the classic
+    runs with kernel 3 (for the attempts and, through
+    :func:`_k3_value_grad`, for the model) against the classic run C; the
+    batched ``bf16_ends`` run (kernel 3 for the model) against the classic
+    ``bf16_ends`` run. Returns each kernel's launches in the phase and its
+    time and bound a launch there."""
+    from walnuts_tpu_torch.config import SamplingConfig
+    from walnuts_tpu_torch.core.sampler import freeze_params, init_sample_state
+    from walnuts_tpu_torch.models.kernels import logistic_regression_vg
+    from walnuts_tpu_torch.ops.integrator import make_fused_integrator
+    from walnuts_tpu_torch.ops.logreg_fused import logistic_regression_fused
+    from walnuts_tpu_torch.parallel import runtime
+
+    check_bf16_rounding(card)
+    logp_grad, dim = logistic_regression_fused(ROWS, DIM, device=DEVICE)
+    fused = make_fused_integrator(logistic_regression_vg(ROWS, DIM, device=DEVICE))
+    k3 = _Recording(fused, every=OPTIONS_K3_EVERY)
+    lg3 = _k3_value_grad(k3)
+    scfg = SamplingConfig(min_iter=OPTIONS_ITERS, max_iter=OPTIONS_ITERS,
+                          block_size=OPTIONS_BLOCK, max_step_halvings=HALVINGS)
+    params, ss = freeze_params(ws), init_sample_state(ws)
+    depths = runtime.make_batched_sample_block = _Depths(runtime.make_batched_sample_block)
+    runs = {}
+
+    def run(name, lg, **kw):
+        depths.depths = []
+        first_replay = len(rec.replay.calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, d, lp, info = runtime.run_sampling(lg, ss, params, scfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = dict(
+            draws=d.cpu().numpy(), logps=lp.cpu().numpy(), key=st.key.cpu().numpy(),
+            n_grads=np.asarray(info.n_grads), device=d.device.type,
+            fails=np.stack([info.n_halve_fail, info.n_nonfinite, info.n_depth_exhausted]),
+            depths=np.concatenate(depths.depths) if depths.depths else None,
+            blocks=info.n_blocks["sampling"], trips=info.n_inner_trips["sampling"],
+            replay_calls=rec.replay.calls[first_replay:])
+        what = "attempts" if not kw.get("batched") else "tier-2 passes"
+        print(f"[options path] {name}: wall {wall:.3f} s, {info.n_inner_trips['sampling']} "
+              f"{'trips' if kw.get('batched') else 'model evaluations asked'}, "
+              f"{info.n_outer_trips['sampling']} {what}, {info.n_syncs['sampling']} "
+              f"syncs, {info.n_blocks['sampling']} blocks  [{card}]")
+
+    def held(name, ref, grads=0, run_ahead=False, draws_on=None, tol=None):
+        """``name`` against ``ref`` bit for bit: draws, log densities, depths
+        where both have them, and unless ``run_ahead`` (the flattened
+        sampler's bank has run into the next transition) end keys, failure
+        counters and ``n_grads`` less ``grads``; with ``tol`` the draws and
+        log densities within ``tol = (rtol, atol)`` (the bitwise share is
+        printed)."""
+        a, b = runs[name], runs[ref]
+        eq = np.array_equal if tol is None else (
+            lambda x, y: bool(np.allclose(x, y, rtol=tol[0], atol=tol[1])))
+        same = {k: bool(eq(a[k], b[k])) for k in ("draws", "logps")}
+        if not run_ahead:
+            same.update({k: bool(np.array_equal(a[k], b[k])) for k in ("key", "fails")})
+            same["n_grads"] = bool(np.array_equal(a["n_grads"] - grads, b["n_grads"]))
+        if a["depths"] is not None and b["depths"] is not None:
+            same["depths"] = bool(np.array_equal(a["depths"], b["depths"]))
+        if draws_on is not None:
+            same[f"draws on {draws_on}"] = a["device"] == draws_on
+        lanes = np.all(a["draws"] == b["draws"], axis=(0, 2))
+        print(f"[options path] {name} against {ref}: {json.dumps(same)}; chains "
+              f"with equal draws {lanes.mean():.4f}, largest difference "
+              f"{np.abs(a['draws'] - b['draws']).max():.3e}  [{card}]")
+        if not all(same.values()):
+            raise AssertionError(f"options path: {name} differs from {ref}: {same}")
+
+    try:
+        with _Recorded() as rec:
+            _reset_counts()
+            fused.launches = 0
+            kw = dict(batched=True, device_draws=True)
+            run("A (batched)", logp_grad, **kw)
+            for name, extra in (
+                    (f"min_latched={OPTIONS_MIN_LATCHED}", dict(min_latched=OPTIONS_MIN_LATCHED)),
+                    ("defer_splits=False", dict(defer_splits=False)),
+                    ("pallas_replay=True", dict(pallas_replay=True)),
+                    ("fresh_cur=True", dict(fresh_cur=True)),
+                    ("bounded_sweeps=True", dict(bounded_sweeps=True))):
+                run(name, logp_grad, **kw, **extra)
+                held(name, "A (batched)")
+            run("device_draws=False", logp_grad, batched=True, device_draws=False)
+            held("device_draws=False", "A (batched)", draws_on="cpu")
+            run("block_budget=1e-9", logp_grad, **kw, block_budget=1e-9)
+            extra_blocks = runs["block_budget=1e-9"]["blocks"] - runs["A (batched)"]["blocks"]
+            if extra_blocks <= 0:
+                raise AssertionError("options path: the block budget capped no block")
+            # every block of the batched scheduler pays one start gradient
+            held("block_budget=1e-9", "A (batched)", grads=extra_blocks)
+            ckw = dict(integrator=k3, device_draws=True)
+            run("C (classic, kernel 3)", lg3, **ckw)
+            run("flatten=True", lg3, flatten=True, **ckw)
+            flat, classic = runs["flatten=True"], runs["C (classic, kernel 3)"]
+            # no start evaluation a transition, one for the bank, the banked
+            # run-ahead counted: n_grads as the reference counts them
+            runahead = flat["n_grads"] - classic["n_grads"] + OPTIONS_ITERS - 1
+            print(f"[options path] flatten=True: run-ahead gradients banked a chain, "
+                  f"mean {runahead.mean():.2f}, least {runahead.min()}  [{card}]")
+            if runahead.min() < 0:
+                raise AssertionError("options path: flatten counts fewer gradients "
+                                     "than the classic path's transitions")
+            held("flatten=True", "C (classic, kernel 3)", run_ahead=True)
+            run(f"chain_groups={OPTIONS_GROUPS}", lg3, chain_groups=OPTIONS_GROUPS, **ckw)
+            # each group's chains at 1/OPTIONS_GROUPS of the width: kernel 3
+            # sums a chain alone, so on the card the groups are bit for bit
+            held(f"chain_groups={OPTIONS_GROUPS}", "C (classic, kernel 3)",
+                 tol=None if DEVICE == "cuda" else OPTIONS_GROUPS_TOL)
+            run("bf16_ends=True (classic, kernel 3)", lg3, bf16_ends=True, **ckw)
+            run("bf16_ends=True (batched, kernel 3 for the model)", lg3, batched=True,
+                bf16_ends=True, device_draws=True)
+            # the batched block caches every draw's start gradient but its
+            # blocks' first
+            held("bf16_ends=True (batched, kernel 3 for the model)",
+                 "bf16_ends=True (classic, kernel 3)",
+                 grads=-(OPTIONS_ITERS - OPTIONS_ITERS // OPTIONS_BLOCK))
+            launches = dict(_counts(), integrator=fused.launches)
+    finally:
+        runtime.make_batched_sample_block = depths.factory
+    for name in ("replay_split_chain", "logreg_value_grad", "integrator"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the options path never launched {name}")
+    print(f"[options path] launches on the options path: {json.dumps(launches)}  [{card}]")
+    # defer_splits=False: every kernel 1 launch of that run is a trip's split
+    split = runs["defer_splits=False"]
+    split_ms = path_replay_ms(card, split["replay_calls"],
+                              "options path, defer_splits=False's trip splits")
+    print(f"[options path] defer_splits=False splits in every trip by kernel 1: "
+          f"{len(split['replay_calls'])} launches for {split['trips']} trips, "
+          f"{split_ms['path_ms']:.4f} ms a trip on the card  [{card}]")
+    path = rec.path_ms(card, "options path")
+    path["integrator"] = path_integrator_ms(
+        card, fused, k3.calls, tag="options path", path="options path",
+        which=f"every {OPTIONS_K3_EVERY}th launch kept:")
+    return {name: dict(launches_options=launches[name],
+                       path_ms_options=path[name]["path_ms"],
+                       path_bound_ms_options=path[name]["path_bound_ms"])
+            for name in ("replay_split_chain", "logreg_value_grad", "integrator")}
 
 
 def _momenta(key, shape, inv_mass):
@@ -1734,8 +1973,10 @@ def run_sv_path(card: str) -> tuple:
         _reset_counts()
         t0 = time.perf_counter()
         try:
-            _, d, _, sinfo = run_sampling(logp_grad, ss, params, scfg, runahead=8,
-                                          tier2_every=12, pallas_pass=name == "fused")
+            _, d, _, sinfo = run_sampling(logp_grad, ss, params, scfg, batched=True,
+                                          device_draws=True,
+                                          runahead=8, tier2_every=12,
+                                          pallas_pass=name == "fused")
             torch.cuda.synchronize()
         finally:
             batched.fused_pass = pass_fn
@@ -2353,6 +2594,8 @@ def main() -> None:
     parser.add_argument("--ab", action="store_true",
                         help="sample the fused route's warmed state four times, "
                         "unfused, fused, fused, unfused")
+    parser.add_argument("--options", action="store_true",
+                        help="run the options path alone (kernels 1, 2 and 3)")
     parser.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--mesh-world", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--mesh-init", help=argparse.SUPPRESS)
@@ -2376,6 +2619,13 @@ def main() -> None:
     from walnuts_tpu_torch.models.targets import logistic_regression_data
     from walnuts_tpu_torch.ops import _cuda
 
+    if args.options:
+        t0 = time.perf_counter()
+        _cuda.build("replay", "logreg", "integrator")
+        print(f"[build] replay, logreg, integrator: {time.perf_counter() - t0:.1f} s")
+        warmed = _phase("fused route's warmup", warmed_state)
+        print(json.dumps(_phase("options path", run_options_path, card, warmed)))
+        return
     names = ("replay", "logreg", "fused_pass", "integrator", "fused_transition")
     t0 = time.perf_counter()
     _cuda.build(*names)
@@ -2417,6 +2667,7 @@ def main() -> None:
     launches["fused_pass"] = route_launches["fused_pass"]
     launches["integrator"] = _phase("classic path", run_classic_path, card, ref)
     classic = _phase("classic A/B", run_classic_ab, card, warmed)
+    options = _phase("options path", run_options_path, card, warmed)
     path_launches, path_t = _phase("transition path", run_transition_path, card, ref,
                                    warmed)
     path.update(path_t, integrator=classic[2])
@@ -2424,7 +2675,7 @@ def main() -> None:
                      for k in ("fused_transition", "fused_sample_block")})
     _phase("transition A/B", run_transition_ab, card, warmed, classic)
     # the other paths' launches and times under keys of their own
-    extra = {k["name"]: {} for k in kernels}
+    extra = {k["name"]: dict(options.get(k["name"], {})) for k in kernels}
     f_launches, f_path = _phase("funnel path", run_funnel_path, card)
     extra["replay_split_chain"].update(launches_funnel=f_launches["replay_split_chain"],
                                        path_ms_funnel=f_path["path_ms"],
@@ -2467,6 +2718,7 @@ def main() -> None:
             "empty_single_ms", "host_ms", "ms_d101", "bound_ms_d101", "ms_d1003",
             "bound_ms_d1003", "launches_funnel", "path_ms_funnel",
             "path_bound_ms_funnel", "launches_sv", "path_ms_sv", "path_bound_ms_sv",
+            "launches_options", "path_ms_options", "path_bound_ms_options",
             "launches_ckpt", "path_ms_ckpt", "path_bound_ms_ckpt", "launches_mesh",
             "path_ms_mesh", "path_bound_ms_mesh", "launches_host_model",
             "path_ms_host_model", "path_bound_ms_host_model")

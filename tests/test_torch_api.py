@@ -184,15 +184,6 @@ def test_sv_wide_model_dtype_matches_reference(monkeypatch):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("option,value", [
-    ("bf16_ends", True), ("flatten", True),
-    ("chain_groups", 2), ("min_latched", 1), ("defer_splits", False),
-])
-def test_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match=option):
-        wtt.walnuts(funnel(3)[0], num_params=3, device="cpu", **{option: value})
-
-
 @pytest.mark.parametrize("kw,match", [
     (dict(batched=False, batched_groups=2), "batched_groups requires batched"),
     (dict(num_chains=5, batched_groups=2), "must divide by batched_groups"),

@@ -169,7 +169,8 @@ def _port_run(start, draws=DRAWS, **kw):
                            max_step_halvings=6, max_trajectory_doublings=5)
     ss = convert.sample_state(start["ss"])
     params = convert.frozen_params(start["params"])
-    return run_sampling(make_logp_grad(funnel(11)[0]), ss, params, scfg, **kw)
+    return run_sampling(make_logp_grad(funnel(11)[0]), ss, params, scfg,
+                        batched=True, **kw)
 
 
 @pytest.fixture(scope="module")

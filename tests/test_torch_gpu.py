@@ -422,10 +422,12 @@ def test_run_sampling_fused_route_on_card(cuda):
                            torch.full((c,), 0.3, device=cuda), wcfg, scfg)
     params, ss = freeze_params(ws), init_sample_state(ws)
     before = fp.fused_pass.launches
-    _, d_f, l_f, info = run_sampling(lg, ss, params, scfg, pallas_pass=True)
+    _, d_f, l_f, info = run_sampling(lg, ss, params, scfg, batched=True,
+                                     device_draws=True, pallas_pass=True)
     torch.cuda.synchronize()
     assert fp.fused_pass.launches - before == info.n_outer_trips["sampling"] > 0
-    _, d_u, _, _ = run_sampling(lg, ss, params, scfg)
+    _, d_u, _, _ = run_sampling(lg, ss, params, scfg, batched=True,
+                                device_draws=True)
     assert d_f.shape == d_u.shape == (20, c, dim)
     assert torch.isfinite(d_f).all() and torch.isfinite(l_f).all()
 
@@ -526,10 +528,11 @@ def test_run_sampling_classic_with_integrator_on_card(cuda):
     params, ss = freeze_params(ws), init_sample_state(ws)
     fused = integ.make_fused_integrator(kernels.funnel_vg(dim))
     _, d_k, l_k, info = run_sampling(lg, ss, params, scfg, batched=False,
-                                     integrator=fused)
+                                     device_draws=True, integrator=fused)
     torch.cuda.synchronize()
     assert fused.launches == info.n_outer_trips["sampling"] > 0
-    _, d_p, _, _ = run_sampling(lg, ss, params, scfg, batched=False)
+    _, d_p, _, _ = run_sampling(lg, ss, params, scfg, batched=False,
+                                device_draws=True)
     assert d_k.shape == d_p.shape == (10, c, dim)
     assert torch.isfinite(d_k).all() and torch.isfinite(l_k).all()
     same = torch.isclose(d_k, d_p, rtol=1e-3, atol=1e-3).all(-1).all(0)
@@ -886,7 +889,7 @@ def test_fused_pass_kernel_on_warmed_sv_state(cuda):
     theta = 0.5 * prng.normal(prng.key(9, cuda), (c, 1003), torch.float32)
     ws = init_warmup_state(keys, theta, torch.ones_like(theta),
                            torch.full((c,), 0.05, device=cuda), wcfg, scfg)
-    ws = run_warmup(lg, ws, wcfg, scfg, tier2_every=12)[0]
+    ws = run_warmup(lg, ws, wcfg, scfg, batched=True, tier2_every=12)[0]
     kept, calls, real = [], [0], batched.fused_pass
 
     def keep(s, *args, **kwargs):
@@ -898,7 +901,8 @@ def test_fused_pass_kernel_on_warmed_sv_state(cuda):
     batched.fused_pass = keep
     try:
         run_sampling(lg, init_sample_state(ws), freeze_params(ws), scfg,
-                     runahead=8, tier2_every=12, pallas_pass=True)
+                     batched=True, device_draws=True, runahead=8, tier2_every=12,
+                     pallas_pass=True)
     finally:
         batched.fused_pass = real
     assert kept
@@ -1023,3 +1027,108 @@ def test_failed_host_build_raises_on_card(cuda, tmp_path):
     bad.write_text("int f( {\n")
     with pytest.raises(RuntimeError, match="failed"):
         build_host(bad)
+
+
+# ---------------------------------------------------------------------------
+# the scheduler options and runtime keywords on the card
+# ---------------------------------------------------------------------------
+
+def _options_start(cuda, c=256, dim=11):
+    """A funnel(dim) start of ``c`` chains on the card, its model by
+    autograd, kernel 3 for the funnel, and kernel 3's own value and
+    gradient (one step of size 0 from ``(theta, 0, 0)``): with the latter
+    as the model a transition's start point has the same bits whether the
+    classic path re-evaluates it or the flattened sampler caches it."""
+    scfg = SamplingConfig(min_iter=10, max_iter=10, block_size=5,
+                          max_step_halvings=6)
+    wcfg = WarmupConfig(min_iter=0, max_iter=0, block_size=10)
+    keys = prng.fold_in(prng.key(13, cuda), torch.arange(c, device=cuda))
+    theta = prng.normal(prng.key(14, cuda), (c, dim), torch.float32)
+    ws = init_warmup_state(keys, theta, torch.ones_like(theta),
+                           torch.full((c,), 0.3, device=cuda), wcfg, scfg)
+    fused = integ.make_fused_integrator(kernels.funnel_vg(dim))
+
+    def k3_value_grad(th):
+        n = th.shape[0]
+        cur = torch.stack([th, torch.zeros_like(th), torch.zeros_like(th)], 1)
+        out, lp = fused(cur, torch.ones_like(th), torch.zeros(n, device=th.device),
+                        torch.ones(n, dtype=torch.int32, device=th.device))
+        return lp, out[:, 2]
+
+    return scfg, freeze_params(ws), init_sample_state(ws), fused, k3_value_grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_bf16_rounding_on_card_is_the_cpus(cuda, dtype):
+    from walnuts_tpu_torch.core.transition import round_bf16
+
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal(10**6) * np.exp(rng.uniform(-30, 30, 10**6))
+    mid = np.arange(1, 4097, dtype=np.float64) * 2.0**-7 + 2.0**-8 + 1.0
+    x = np.concatenate([x, mid, np.nextafter(mid, 0), np.nextafter(mid, 4), -mid])
+    v = torch.from_numpy(x).to(dtype)
+    assert torch.equal(round_bf16(v.to(cuda)).cpu(), round_bf16(v))
+
+
+def test_flatten_with_kernel_3_is_the_classic_chain(cuda):
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    scfg, params, ss, fused, lg3 = _options_start(cuda)
+    kw = dict(integrator=fused, device_draws=True)
+    _, d_c, l_c, i_c = run_sampling(lg3, ss, params, scfg, **kw)
+    _, d_f, l_f, i_f = run_sampling(lg3, ss, params, scfg, flatten=True, **kw)
+    assert torch.equal(d_f, d_c) and torch.equal(l_f, l_c)
+    # no start evaluation a transition, the bank's one, its run-ahead
+    assert np.all(i_f.n_grads - i_c.n_grads >= 1 - 10)
+
+
+def test_chain_groups_with_kernel_3_is_the_classic_chain(cuda):
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    scfg, params, ss, fused, lg3 = _options_start(cuda)
+    kw = dict(integrator=fused, device_draws=True)
+    s_c, d_c, l_c, i_c = run_sampling(lg3, ss, params, scfg, **kw)
+    s_g, d_g, l_g, i_g = run_sampling(lg3, ss, params, scfg, chain_groups=2, **kw)
+    assert torch.equal(s_g.key, s_c.key)
+    np.testing.assert_array_equal(i_g.n_grads, i_c.n_grads)
+    assert torch.equal(d_g, d_c) and torch.equal(l_g, l_c)
+
+
+@pytest.mark.parametrize("kw", [dict(defer_splits=False), dict(min_latched=64),
+                                dict(fresh_cur=True), dict(bounded_sweeps=True)],
+                         ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_batched_option_on_card_is_the_default_block(cuda, kw):
+    """Each scheduling option on the card against the deferred, static
+    default: draws, log densities, end keys and n_grads bit for bit;
+    defer_splits=False splits in every trip through kernel 1."""
+    from walnuts_tpu_torch.models import funnel
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    scfg, params, ss, _, _ = _options_start(cuda)
+    lg = make_logp_grad(funnel(11)[0])
+    s_a, d_a, l_a, i_a = run_sampling(lg, ss, params, scfg, batched=True)
+    before = prng.replay_split_chain.launches
+    s_b, d_b, l_b, i_b = run_sampling(lg, ss, params, scfg, batched=True, **kw)
+    if "defer_splits" in kw:
+        assert prng.replay_split_chain.launches - before >= i_b.n_inner_trips["sampling"]
+    assert torch.equal(s_b.key, s_a.key)
+    np.testing.assert_array_equal(i_b.n_grads, i_a.n_grads)
+    assert torch.equal(d_b, d_a) and torch.equal(l_b, l_a)
+
+
+@pytest.mark.parametrize("device_draws", [False, True])
+def test_device_draws_placement_on_card(cuda, device_draws):
+    from walnuts_tpu_torch.models import funnel
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+    from walnuts_tpu_torch.parallel.runtime import run_sampling
+
+    scfg, params, ss, _, _ = _options_start(cuda, c=64)
+    lg = make_logp_grad(funnel(11)[0])
+    _, d, lp, _ = run_sampling(lg, ss, params, scfg, batched=True,
+                               device_draws=device_draws)
+    _, d_ref, _, _ = run_sampling(lg, ss, params, scfg, batched=True,
+                                  device_draws=not device_draws)
+    assert d.device.type == ("cuda" if device_draws else "cpu")
+    assert d.is_pinned() == (not device_draws)
+    assert torch.equal(d.cpu(), d_ref.cpu())

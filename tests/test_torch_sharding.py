@@ -194,6 +194,7 @@ def test_checkpoint_resume_on_mesh(runs):
     ("indivisible", r"num_chains \(7\) must divide by the mesh size \(2\)"),
     ("device", "disagrees with the mesh's device"),
     ("dim_name", "mesh must be a one-dimensional"),
+    ("chain_groups", "chain_groups requires mesh=None"),
 ])
 def test_mesh_refusals(runs, case, match):
     """The refusals of a mesh: ValueError (rank 0's record)."""

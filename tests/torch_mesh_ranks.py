@@ -131,10 +131,11 @@ def interrupt_case(mesh=None, stop_rank=None, sigint_rank=None):
         return call
 
     ws, wd, _, wi = run_warmup(lg, ws, wcfg, scfg, save_warmup=True, mesh=mesh,
-                               progress=progress(stop_rank, "raise"))
+                               batched=True, progress=progress(stop_rank, "raise"))
     params = freeze_params(ws)
     how = "raise" if sigint_rank is None else "sigint"
     ss, sd, slp, si = run_sampling(lg, init_sample_state(ws), params, scfg, mesh=mesh,
+                                   batched=True, device_draws=True,
                                    progress=progress(sigint_rank, how))
     return dict(warmup_draws=wd.numpy(), draws=sd.numpy(), logps=slp.numpy(),
                 theta=ss.theta.numpy(), step=params.step_size.numpy(),
@@ -181,7 +182,7 @@ def rank_dies(mesh) -> str:
             os._exit(DEATH_CODE)
 
     try:
-        run_warmup(lg, ws, wcfg, scfg, mesh=mesh, progress=progress)
+        run_warmup(lg, ws, wcfg, scfg, mesh=mesh, batched=True, progress=progress)
     except RuntimeError as e:
         return f"{type(e).__name__}: {e}"
     raise AssertionError("the rank's death did not raise")
@@ -197,6 +198,7 @@ def refusals(mesh) -> dict:
         "indivisible": dict(num_chains=7),
         "device": dict(device="cuda"),
         "dim_name": dict(mesh=other),
+        "chain_groups": dict(chain_groups=2),
     }
     out = {}
     for name, extra in cases.items():

@@ -1,10 +1,11 @@
 """End-to-end sampling API of the PyTorch port.
 
-Counterpart of ``walnuts_tpu/api.py``. ``walnuts`` runs by
-default the batched-native scheduler (asynchronous adaptive warmup, then
-sampling), with ``batched=False`` or an ``integrator`` the classic
-per-draw path, with checkpoint and resume (``checkpoint_dir``) and a
-profiler trace (``profile_dir``). The model is a batched PyTorch function
+Counterpart of ``walnuts_tpu/api.py``, with every keyword of the
+reference's ``walnuts``. It runs by default the batched-native scheduler
+(asynchronous adaptive warmup, then sampling), with ``batched=False``, an
+``integrator``, ``flatten`` or ``chain_groups`` the classic per-draw path,
+with checkpoint and resume (``checkpoint_dir``) and a profiler trace
+(``profile_dir``). The model is a batched PyTorch function
 ``theta (C, D) -> log density (C,)`` differentiated by autograd, or with
 ``fused=True`` a function ``theta (C, D) -> (log density (C,), gradient
 (C, D))`` such as ``ops.logreg_fused.logistic_regression_fused``.
@@ -27,7 +28,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import numbers
 import os
 import time
 from typing import Callable, List, Optional, Tuple, Union
@@ -51,8 +51,10 @@ from walnuts_tpu_torch.ops.math import (
 from walnuts_tpu_torch.parallel.checkpoint import BlockCheckpointer
 from walnuts_tpu_torch.parallel.runtime import (
     RunInfo,
+    _refuse_chain_groups,
     _refuse_groups,
     _refuse_mesh,
+    _refuse_schedulers,
     _refuse_thin,
     _whole,
     chain_sharding,
@@ -65,27 +67,6 @@ from walnuts_tpu_torch.utils.output import (
     WarmupInfo,
     prepare_seed,
 )
-
-# options of the reference's walnuts() outside this port: the values that
-# select the ported behaviour, and what a user must know otherwise
-_NOT_PORTED = {
-    "bf16_ends": ((False,), "bfloat16 merge-stack endpoints (ROADMAP.md Queue 1)"),
-    "flatten": ((False,), "the flattened classic scheduler (ROADMAP.md Queue 1)"),
-    "chain_groups": ((1,), "classic chain groups (ROADMAP.md Queue 1)"),
-    "min_latched": ((0,), "tier-2 pass deferral (ROADMAP.md Queue 1)"),
-    "defer_splits": ((True,), "per-trip key splits; the port always defers "
-                              "them (ROADMAP.md Queue 1)"),
-}
-
-
-def _is_ported(value, allowed) -> bool:
-    """``value`` is one of ``allowed`` (``None``/bools by identity, ints
-    by value)."""
-    return any(value is a or (isinstance(a, int) and not isinstance(a, bool)
-                              and isinstance(value, numbers.Integral)
-                              and not isinstance(value, bool) and value == a)
-               for a in allowed)
-
 
 def walnuts(
     logp: Callable,
@@ -129,21 +110,25 @@ def walnuts(
     adapt_init_step: bool = True,
     block_size: int = 25,
     return_info: bool = False,
+    profile_dir: Optional[str] = None,
     fused: bool = False,
-    batched: Optional[bool] = None,
+    chain_groups: int = 1,
     integrator=None,
+    bf16_ends: bool = False,
+    flatten: bool = False,
+    batched: Optional[bool] = None,
+    batched_groups: int = 1,
     runahead: int = 8,
     tier2_every: int = 6,
     warmup_tier2_every: Optional[int] = None,
-    batched_groups: int = 1,
-    thin: int = 1,
-    keep_dims=None,
-    profile_dir: Optional[str] = None,
+    min_latched: int = 0,
+    defer_splits: bool = True,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 1,
     checkpoint_keep_last_n: Optional[int] = None,
     resume: bool = True,
-    **unported,
+    thin: int = 1,
+    keep_dims=None,
 ) -> Union[List[WalnutsOutputArray], Tuple[List[WalnutsOutputArray], RunInfo]]:
     """Sample from a batched PyTorch log density with adaptive WALNUTS.
 
@@ -172,14 +157,31 @@ def walnuts(
     - ``fused``: ``logp`` already returns ``(log density, gradient)``.
     - ``batched``: the batched-native scheduler (True) or the classic
       per-draw path (False), whose draws are the same per chain. ``None``
-      picks the batched scheduler unless an ``integrator`` is given.
+      picks the batched scheduler unless an ``integrator``, ``flatten`` or
+      ``chain_groups > 1`` is given.
     - ``integrator``: an attempt integrator for the classic path, e.g.
       ``ops.integrator.make_fused_integrator(models.kernels.funnel_vg(d))``
       (one kernel launch per attempt on CUDA tensors). With
       ``batched=True`` it raises ``ValueError``.
+    - ``chain_groups``: the classic sampler sorts the chains by their
+      adapted cost and advances that many groups one after the other, so
+      that a slow chain stalls its own group only (``mesh=None``; must
+      divide ``num_chains``). ``flatten``: the classic sampler's run-ahead
+      flattened form (a chain that finishes a trajectory starts the next
+      at once); the same draws per chain. With ``chain_groups > 1`` it is
+      dropped, as in the reference; either with ``batched=True`` or
+      ``checkpoint_dir`` raises ``ValueError``.
+    - ``bf16_ends``: keep the merge stack's endpoints in bfloat16 and round
+      both operands of every U-turn test to bfloat16 (both schedulers;
+      warmup's classic transitions too). A valid sampler whose trajectory
+      lengths shift slightly; draws and integration keep full precision.
     - ``runahead``/``tier2_every``: sampling's run-ahead depth and tier-2
       cadence; ``warmup_tier2_every`` (default 12) is warmup's cadence;
-      warmup's run-ahead is 4, as in the reference.
+      warmup's run-ahead is 4, as in the reference. ``min_latched``: a
+      sampling pass due at the ``tier2_every`` mark waits until that many
+      lanes have latched a leaf; ``defer_splits=False``: split the keys in
+      every trip instead of in the pass's replay. Both are scheduling
+      only: the draws do not change.
     - ``batched_groups``: sort the chains by cost every block and run
       that many groups one after the other, in warmup and sampling
       (batched only; must divide ``num_chains``).
@@ -199,23 +201,14 @@ def walnuts(
       ``checkpoint_keep_last_n`` compacts each phase's older block files
       into one (no draw is dropped).
 
-    Options of the reference that the port does not have yet raise
-    ``NotImplementedError`` when set to anything but their default.
+    The draws stay on ``device`` through sampling (the runtime's
+    ``device_draws=True``) and come to the host once, at the end.
 
     Returns per-chain draw arrays ``(draws, dim)`` (NumPy, with
     ``.warmup`` carrying the adapted step size and, optionally, the
     inverse metric and warmup draws), and with ``return_info`` the
     :class:`RunInfo`.
     """
-    for name, value in unported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"walnuts() got an unexpected keyword argument '{name}'")
-        allowed, what = _NOT_PORTED[name]
-        if not _is_ported(value, allowed):
-            raise NotImplementedError(
-                f"walnuts({name}={value!r}): {what} is not ported to "
-                f"walnuts_tpu_torch yet"
-            )
     dtype = dtype or torch.float32
     device = torch.device(device)
     shard = chain_sharding(mesh)
@@ -227,14 +220,19 @@ def walnuts(
         device = shard.device
     if batched is None:
         # the batched scheduler emits the classic path's draws, so this is
-        # a pure scheduling default; an integrator runs on the classic path
-        batched = integrator is None
+        # a pure scheduling default; an integrator, flatten and chain groups
+        # run on the classic path
+        batched = integrator is None and not flatten and chain_groups == 1
+    # as in the reference: flatten is dropped under chain groups
+    flatten = flatten and chain_groups == 1
     if num_chains < 1:
         raise ValueError(
             f"num_chains must be positive; found num_chains = {num_chains}")
     # the reference raises these at the first block; before any work here
+    _refuse_schedulers(batched, flatten, chain_groups, checkpoint_dir)
     _refuse_groups(batched, batched_groups, num_chains)
     _refuse_mesh(shard, batched_groups, num_chains)
+    _refuse_chain_groups(shard, chain_groups, num_chains)
     _refuse_thin(thin, block_size)
     if num_params is None:
         if inits is None:
@@ -419,7 +417,7 @@ def walnuts(
             wstate, warmup_t, warmup_lp_t, info = run_warmup(
                 logp_grad, wstate, warmup_cfg, sampling_cfg,
                 save_warmup=save_warmup, progress=progress, batched=batched,
-                integrator=integrator,
+                integrator=integrator, bf16_ends=bf16_ends,
                 tier2_every=12 if warmup_tier2_every is None else warmup_tier2_every,
                 batched_groups=batched_groups, checkpoint=ckpt,
                 start_it=start_warmup, info=warmup_info, mesh=mesh,
@@ -448,10 +446,13 @@ def walnuts(
             _, draws_t, _, info = run_sampling(
                 logp_grad, sstate, params, sampling_cfg, info=info,
                 progress=progress, on_r_hat=on_r_hat, batched=batched,
-                integrator=integrator, runahead=runahead,
-                tier2_every=tier2_every, batched_groups=batched_groups,
-                thin=thin, keep_dims=keep_dims, checkpoint=ckpt,
-                start_it=start_sampling, mesh=mesh,
+                integrator=integrator, bf16_ends=bf16_ends,
+                chain_groups=chain_groups, flatten=flatten,
+                runahead=runahead, tier2_every=tier2_every,
+                min_latched=min_latched, defer_splits=defer_splits,
+                batched_groups=batched_groups, thin=thin, keep_dims=keep_dims,
+                checkpoint=ckpt, start_it=start_sampling, mesh=mesh,
+                device_draws=True,
             )
             draws = draws_t.cpu().numpy()
             if ckpt is not None and start_sampling:

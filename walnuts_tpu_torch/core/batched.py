@@ -21,13 +21,25 @@ What changes in PyTorch:
   the block's output at its draw index, in place; ``runahead`` B still
   caps how far a lane may run ahead of the slowest (``cap``). The emitted
   draws are the same: a slot is never overwritten before it is emitted.
-* Options. Only the reference's default scheduler is ported: deferred key
-  splits with one replay entry point (``ops.prng.replay_split_chain``,
-  whose tensor's device picks the plain version or the CUDA kernel), the
-  static form of the tier-2 sweeps, no ``bf16_ends`` / ``fresh_cur`` /
-  ``min_latched``. ``pallas_pass=True`` runs each sampling pass as one
-  launch of the fused-pass kernel (``ops.fused_pass``); the pass's
-  arithmetic (``ops.fused_pass.leaf_apply``) is shared by both routes.
+* Options: every one of the reference's factory. ``pallas_pass=True``
+  runs each sampling pass as one launch of the fused-pass kernel
+  (``ops.fused_pass``); the pass's arithmetic (``ops.fused_pass.leaf_apply``)
+  is shared by both routes. ``bf16_ends`` keeps the merge stack in
+  bfloat16 and rounds the U-turn operands in the pass. ``min_latched``
+  defers a pass due at the K-trip mark while fewer lanes have latched:
+  the trip loop's read then returns two counts, still one sync.
+  ``defer_splits=False`` splits the key of every lane that ends an
+  attempt in the trip, through a one-round call of
+  ``ops.prng.replay_split_chain`` (kernel 1 on the card), which is the
+  split bit for bit. ``pallas_replay`` is accepted for the reference's
+  signature: the deferred replay is ``ops.prng.replay_split_chain`` for
+  either value (its tensor's device picks the plain version or the CUDA
+  kernel), and both give the reference's subkeys. ``fresh_cur`` and
+  ``bounded_sweeps`` are accepted the same way: in the reference they
+  reshape a compiled program (a stale-cursor bit instead of the cursor's
+  write; sweeps bounded by the batch's largest merge count), and each is
+  bitwise its default route, which is what an eager pass computes for
+  either value. The pass is the default's for every value of both.
 """
 
 from __future__ import annotations
@@ -142,12 +154,19 @@ def make_batched_sample_block(
     max_step_halvings: int,
     runahead: int = 8,
     tier2_every: int = 6,
+    adapt_step_size: bool = False,
+    bf16_ends: bool = False,
+    min_latched: int = 0,
+    defer_splits: bool = True,
+    pallas_replay: bool = False,
+    fresh_cur: bool = False,
     adapt_full: bool = False,
+    bounded_sweeps: Optional[bool] = None,
     pallas_pass: bool = False,
     pass_tile: Optional[int] = None,
 ):
     """Build ``(start_block, sample_block)`` for batched-native sampling
-    (the reference's factory of the same name, default configuration).
+    (the reference's factory of the same name, with its options).
 
     - ``start_block(key, theta, n_grads, fails, step, inv_mass,
       min_micro)`` evaluates one batched gradient (counted) and returns the
@@ -159,8 +178,16 @@ def make_batched_sample_block(
 
     ``runahead`` is B (how many draws a lane may run ahead), ``tier2_every``
     is K (trips per tier-2 pass; 0 = a pass whenever no lane can run).
-    ``adapt_full`` makes the block asynchronous adaptive warmup (Adam
-    observes inside the trip, the estimators in the tier-2 pass); then
+    ``min_latched`` is T: with K > 0, a pass due at the K-trip mark waits
+    while fewer than T of the lanes that may run have latched a leaf and a
+    lane can still run. ``adapt_step_size`` makes Adam observe the coarsest
+    attempt of every leaf inside the trip. ``bf16_ends``,
+    ``defer_splits``, ``pallas_replay``, ``fresh_cur`` and
+    ``bounded_sweeps`` are described in the module docstring: the last
+    three are accepted and leave the pass as it is; every option but
+    ``bf16_ends`` is scheduling only (same draws, keys and counters), and
+    ``bf16_ends`` gives the classic path's ``bf16_ends`` draws. ``adapt_full`` makes the block asynchronous adaptive warmup (the
+    estimators are applied in the tier-2 pass); then
     ``sample_block.adapt(state, aux, max_error, num_draws, out=None)``
     returns ``(BatchedBlockResult, LaneState, aux')`` with ``aux = (mass,
     mm_est, iteration, inv_mass, step, min_micro)``.
@@ -168,16 +195,23 @@ def make_batched_sample_block(
     ``pallas_pass=True`` runs every tier-2 pass of the sampling block as
     one call of ``ops.fused_pass.fused_pass``: the CUDA kernel for CUDA
     tensors (``pass_tile`` chains per CUDA block, default 8), its plain
-    version for CPU tensors. The draws are the unfused pass's. Sampling
-    only, as in the reference: with ``adapt_full`` it raises.
+    version for CPU tensors. The draws are the unfused pass's. It covers
+    the default sampling configuration only, as in the reference: with
+    ``adapt_full``, ``adapt_step_size``, ``bf16_ends``, ``fresh_cur``,
+    ``pallas_replay`` or ``defer_splits=False`` it raises ``ValueError``,
+    so the kernel is never handed a configuration it does not compute.
     """
-    if pallas_pass and adapt_full:
+    if pallas_pass and (adapt_full or fresh_cur or bf16_ends or adapt_step_size
+                        or pallas_replay or not defer_splits):
         raise ValueError(
-            "pallas_pass=True covers the sampling configuration only (no "
-            "adapt_full); warmup uses the unfused tier-2 pass")
+            "pallas_pass=True covers the default sampling configuration "
+            "only (defer_splits, no adapt_full/fresh_cur/bf16_ends/"
+            "adapt_step_size/pallas_replay); other configurations use the "
+            "unfused tier-2 pass")
     n_slots = max(max_depth - 1, 1)
     B = max(int(runahead), 1)
     K = int(tier2_every)
+    T = int(min_latched)
 
     def _lane_state(key, theta, logp0, grad0, step, inv_mass, min_micro,
                     adam, n_grads, fails):
@@ -196,8 +230,8 @@ def make_batched_sample_block(
             acc_logw=joint0,
             acc_grad_bk=grad0, acc_grad_sel=grad0, acc_grad_fw=grad0,
             forward=forward0, leaf_idx=i32(0), n_leaves=i32(1),
-            stack_e=torch.zeros((C, n_slots, 2, D), dtype=theta.dtype,
-                                device=dev),
+            stack_e=torch.zeros((C, n_slots, 2, D), dtype=(
+                torch.bfloat16 if bf16_ends else theta.dtype), device=dev),
             run_sel=theta, run_sel_logp=logp0, run_sel_grad=grad0,
             run_logw=torch.full_like(logp0, float("-inf")),
             ms_th=theta, ms_rho=rho0, ms_grad=grad0, ms_joint=joint0,
@@ -242,15 +276,16 @@ def make_batched_sample_block(
 
         att_done = run & (steps_done >= s.steps_total)
         joint_n = lp_cur + logp_momentum(cur_rho, inv_mass)
-        # deferred splits: count attempt ends; tier 2 replays the splits
-        n_ends = s.n_ends + att_done.to(torch.int32)
+        if defer_splits:
+            # count attempt ends; tier 2 replays the splits
+            n_ends = s.n_ends + att_done.to(torch.int32)
 
         in_fwd = s.phase == _PH_FWD
         f_done = att_done & in_fwd
         f_err = torch.abs(s.ms_joint - joint_n)
         f_ok = f_err <= max_error  # NaN -> False -> halve / fail
 
-        if adapt_full:
+        if adapt_step_size:
             # Adam observes exp(-|dH|) of each leaf's coarsest attempt
             accept = torch.exp(-f_err).to(s.dt.dtype)
             accept = torch.where(torch.isnan(accept), torch.zeros_like(accept),
@@ -284,7 +319,16 @@ def make_batched_sample_block(
         fwd_joint = torch.where(set_fwd, joint_n, s.fwd_joint)
 
         latch = leaf_ok_now | leaf_fail_now
-        leaf_end_at = torch.where(latch, n_ends, s.leaf_end_at)
+        key, ku = s.key, s.ku
+        if defer_splits:
+            leaf_end_at = torch.where(latch, n_ends, s.leaf_end_at)
+        else:
+            # split every ending lane's key now, the leaf's subkey latched
+            # as ku: one round of the replay, bitwise the split
+            n_ends, leaf_end_at = s.n_ends, s.leaf_end_at
+            key, ku = prng.replay_split_chain(
+                s.key, s.ku, att_done.to(torch.int32),
+                (att_done & latch).to(torch.int32))
         leaf_done = s.leaf_done | latch
         leaf_ok = torch.where(latch, leaf_ok_now, s.leaf_ok)
 
@@ -315,6 +359,7 @@ def make_batched_sample_block(
                                torch.where(rs1, s.ms_grad, cur_grad))
 
         return s._replace(
+            key=key, ku=ku,
             cur_th=cur_th, cur_rho=cur_rho, cur_grad=cur_grad, lp_cur=lp_cur,
             fwd_th=fwd_th, fwd_rho=fwd_rho, fwd_grad=fwd_grad,
             fwd_logp_pos=fwd_logp_pos, fwd_joint=fwd_joint,
@@ -350,9 +395,16 @@ def make_batched_sample_block(
                     mass, mm_est, iteration, inv_mass, step, min_micro = aux
                 active = state.draws_done < cap
                 n0 = n_inner
-                while K <= 0 or n_inner - n0 < K:
+                while K <= 0 or T > 0 or n_inner - n0 < K:
                     n_syncs += 1
-                    if not bool((active & ~state.leaf_done).any()):
+                    if T > 0 and K > 0:
+                        # one read: the lanes that can run, and those latched
+                        runnable, latched = torch.stack([
+                            (active & ~state.leaf_done).sum(),
+                            (active & state.leaf_done).sum()]).tolist()
+                        if not runnable or (n_inner - n0 >= K and latched >= T):
+                            break
+                    elif not bool((active & ~state.leaf_done).any()):
                         break
                     state = inner_trip(state, active, step, inv_mass,
                                        min_micro, max_error)
@@ -366,8 +418,10 @@ def make_batched_sample_block(
                 state, complete, sel_theta, sel_logp, out_depth, bank_idx, aux = (
                     leaf_apply(state, active, step, inv_mass, min_micro, R,
                                max_depth=max_depth,
-                               replay=prng.replay_split_chain,
-                               aux=None if aux is None else aux[:3]))
+                               replay=prng.replay_split_chain if defer_splits
+                               else None,
+                               aux=None if aux is None else aux[:3],
+                               bf16_ends=bf16_ends))
                 # bank completed draws in place at their draw index
                 bank_draws((draws, logps, depths), complete, sel_theta,
                            sel_logp, out_depth, bank_idx)
@@ -403,10 +457,14 @@ def make_batched_sample_block(
 
 
 def make_batched_warmup_block(logp_grad: LogpGradFn, sampling_cfg,
-                              runahead: int = 4, tier2_every: int = 6):
+                              pallas_replay: bool = False, runahead: int = 4,
+                              tier2_every: int = 6,
+                              bounded_sweeps: Optional[bool] = None):
     """Asynchronous adaptive warmup block (the reference's function of the
     same name): each lane adapts from its own draws at its own draw
     boundary and restarts at once, with ``runahead`` draws of run-ahead.
+    ``pallas_replay`` and ``bounded_sweeps`` as in
+    :func:`make_batched_sample_block`.
 
     Returns ``warmup_block(state: WarmupState, n, out=None) -> (state',
     BatchedBlockResult)``; ``out`` as in ``sample_block``, or a function
@@ -420,7 +478,10 @@ def make_batched_warmup_block(logp_grad: LogpGradFn, sampling_cfg,
         sampling_cfg.max_step_halvings,
         runahead=runahead,
         tier2_every=tier2_every,
+        adapt_step_size=True,
+        pallas_replay=pallas_replay,
         adapt_full=True,
+        bounded_sweeps=bounded_sweeps,
     )
     block_adapt = sample_block.adapt
     max_error = sampling_cfg.max_hamiltonian_error

@@ -118,18 +118,23 @@ def _add_fails(a: FailStats, b: FailStats) -> FailStats:
 
 def make_warmup_step(
     logp_grad: LogpGradFn, sampling_cfg: SamplingConfig, integrator=None,
+    bf16_ends: bool = False, unroll: int = 1,
 ) -> Callable[[WarmupState], Tuple[WarmupState, WarmupOutput]]:
     """One continuous-warmup iteration of every chain
     (adaptive_walnuts.hpp:234-251): read the current mass, step and
     min-micro estimates, run one transition with Adam observing every
     coarsest macro-step attempt, then feed the selected draw and its score
-    back into the estimators with the ``1 - 1/(count0 + t)`` discount."""
+    back into the estimators with the ``1 - 1/(count0 + t)`` discount.
+    ``bf16_ends`` and ``unroll`` go to ``make_transition`` (``unroll``
+    changes nothing in the port)."""
     transition = make_transition(
         logp_grad,
         max_depth=sampling_cfg.max_trajectory_doublings,
         max_step_halvings=sampling_cfg.max_step_halvings,
         adapt_step_size=True,
         integrator=integrator,
+        bf16_ends=bf16_ends,
+        unroll=unroll,
     )
     max_error = sampling_cfg.max_hamiltonian_error
 
@@ -176,16 +181,20 @@ def init_sample_state(state: WarmupState) -> SampleState:
 
 def make_sample_step(
     logp_grad: LogpGradFn, sampling_cfg: SamplingConfig, integrator=None,
+    bf16_ends: bool = False, unroll: int = 1,
 ) -> Callable[[SampleState, FrozenParams], Tuple[SampleState, TransitionResult]]:
     """One fixed-parameter WALNUTS draw of every chain
     (``WalnutsSampler::operator()``, walnuts.hpp:682-692), plus the running
-    log-density Welford that feeds the R-hat early stop."""
+    log-density Welford that feeds the R-hat early stop. ``bf16_ends`` and
+    ``unroll`` as in :func:`make_warmup_step`."""
     transition = make_transition(
         logp_grad,
         max_depth=sampling_cfg.max_trajectory_doublings,
         max_step_halvings=sampling_cfg.max_step_halvings,
         adapt_step_size=False,
         integrator=integrator,
+        bf16_ends=bf16_ends,
+        unroll=unroll,
     )
     max_error = sampling_cfg.max_hamiltonian_error
 

@@ -21,9 +21,20 @@ What changes in PyTorch:
   (``ops.integrator.integrate_plain``), which runs to the largest
   ``n_steps`` of the batch as the vmapped inner while loop does.
 
-Not ported: ``bf16_ends``, ``unroll`` and the flattened run-ahead sampler
-(``make_flat_sample_block``); ROADMAP.md lists them. The batched scheduler
-(``core/batched.py``) uses the constants and ``FailStats`` from here.
+* ``bf16_ends`` stores the merge stack in ``torch.bfloat16`` and rounds
+  both operands of every U-turn test through bfloat16, as the reference
+  does; draws and integration keep full precision. ``unroll`` is accepted
+  for the reference's signature and changes nothing: the reference applies
+  its body ``unroll`` times per ``lax.while_loop`` iteration, each masked to
+  the identity on finished lanes, so its draws do not depend on it, and an
+  eager loop has no compiled iteration to amortise.
+* :func:`make_flat_sample_block`, the run-ahead flattened sampler: the
+  reference's ``lax.scan`` over draws around a per-lane ``while_loop``
+  becomes a Python loop over the block's draws around a loop that reads
+  ``(emitted & done).all()`` once per attempt.
+
+The batched scheduler (``core/batched.py``) uses the constants and
+``FailStats`` from here.
 
 A span packs five ``(C, D)`` rows into ``(C, 5, D)`` and four scalars into
 ``(C, 4)``: rows theta_bk, rho_bk, theta_fw, rho_fw, theta_sel; scalars
@@ -63,14 +74,26 @@ def span_from_point(theta, rho, logp_pos, logp_joint):
     return v, s
 
 
-def span_uturn(older_v, newer_v, forward, inv_mass) -> torch.Tensor:
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 and back to its dtype (a value already
+    stored in bfloat16 is unchanged)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def span_uturn(older_v, newer_v, forward, inv_mass,
+               round_ends: bool = False) -> torch.Tensor:
     """U-turn test between adjacent spans (walnuts.hpp:192-201): ``older``
-    was built first; ``forward`` (C,) is the direction of travel."""
+    was built first; ``forward`` (C,) is the direction of travel. With
+    ``round_ends`` every endpoint operand is rounded to bfloat16 first
+    (``bf16_ends``)."""
     f = forward[:, None]
     bk_theta = torch.where(f, older_v[:, _THETA_BK], newer_v[:, _THETA_BK])
     bk_rho = torch.where(f, older_v[:, _RHO_BK], newer_v[:, _RHO_BK])
     fw_theta = torch.where(f, newer_v[:, _THETA_FW], older_v[:, _THETA_FW])
     fw_rho = torch.where(f, newer_v[:, _RHO_FW], older_v[:, _RHO_FW])
+    if round_ends:
+        bk_theta, bk_rho, fw_theta, fw_rho = (
+            round_bf16(x) for x in (bk_theta, bk_rho, fw_theta, fw_rho))
     delta = inv_mass * (fw_theta - bk_theta)
     return (torch.sum(fw_rho * delta, -1) < 0) | (torch.sum(bk_rho * delta, -1) < 0)
 
@@ -195,10 +218,13 @@ def make_transition_parts(
     max_step_halvings: int,
     adapt_step_size: bool,
     integrator=None,
+    bf16_ends: bool = False,
 ):
     """``(init_state, body)``: ``init_state`` builds the fresh carry from a
     start point whose log density and gradient are known, ``body`` advances
-    it by one attempt on every lane."""
+    it by one attempt on every lane. Shared by :func:`make_transition` and
+    :func:`make_flat_sample_block`. ``bf16_ends`` keeps the merge stack in
+    bfloat16 and rounds the U-turn operands (see :func:`make_transition`)."""
     # imported here: ops.fused_pass imports this module's constants
     from walnuts_tpu_torch.ops.fused_pass import fresh_trajectory
 
@@ -224,8 +250,8 @@ def make_transition_parts(
             acc_v=acc_v, acc_s=acc_s,
             acc_grad_bk=grad0, acc_grad_sel=grad0, acc_grad_fw=grad0,
             forward=forward0, leaf_idx=i32(0), n_leaves=i32(1),
-            stack_e=torch.zeros((C, n_slots, 2, D), dtype=theta.dtype,
-                                device=dev),
+            stack_e=torch.zeros((C, n_slots, 2, D), dtype=(
+                torch.bfloat16 if bf16_ends else theta.dtype), device=dev),
             run_sel=theta, run_sel_logp=logp0, run_sel_grad=grad0,
             run_logw=torch.full_like(logp0, float("-inf")),
             ms=start, ms_joint=joint0,
@@ -304,8 +330,12 @@ def make_transition_parts(
         def uturn_end(old_th, old_rho):
             # span_uturn with the newer-side endpoint == this leaf: delta
             # points from the older to the newer side
-            delta = _r(sgn) * inv_mass * (leaf_th - old_th)
-            return ((torch.sum(leaf_rho * delta, -1) < 0)
+            l_th, l_rho = leaf_th, leaf_rho
+            if bf16_ends:
+                old_th, old_rho, l_th, l_rho = (
+                    round_bf16(x) for x in (old_th, old_rho, l_th, l_rho))
+            delta = _r(sgn) * inv_mass * (l_th - old_th)
+            return ((torch.sum(l_rho * delta, -1) < 0)
                     | (torch.sum(old_rho * delta, -1) < 0))
 
         n_merges = count_trailing_zeros(s.leaf_idx + 1)
@@ -313,7 +343,7 @@ def make_transition_parts(
         ok = torch.ones_like(leaf_ok)
         for i in range(n_slots):
             do = leaf_ok & (i < n_merges) & ok
-            slot = s.stack_e[:, i]
+            slot = s.stack_e[:, i].to(leaf_th.dtype)
             ut = uturn_end(slot[:, 0], slot[:, 1])
             cur_end = torch.where(_b(do), slot, cur_end)
             ok = ok & ~(do & ut)
@@ -325,8 +355,8 @@ def make_transition_parts(
         push = leaf_ok & ~subtree_done
         slots = torch.arange(n_slots, device=n_merges.device, dtype=torch.int32)
         write_mask = _r(push) & (_r(n_merges) == slots[None, :])
-        stack_e = torch.where(write_mask[:, :, None, None], cur_end[:, None],
-                              s.stack_e)
+        stack_e = torch.where(write_mask[:, :, None, None],
+                              cur_end.to(s.stack_e.dtype)[:, None], s.stack_e)
 
         # ---- reservoir: weight-proportional selection over the current
         # subtree's leaves; a -inf-weight leaf is never selected
@@ -464,12 +494,33 @@ def make_transition_parts(
     return init_state, body
 
 
+def _counted(logp_grad: LogpGradFn, integrator):
+    """The attempt integrator (``integrator``, or the plain masked loop with
+    ``logp_grad``) wrapped to count, in ``asked[0]``, the model evaluations
+    the host asks for: masked leapfrog steps (one read of the trip count
+    each call), or integrator calls. Returns ``(counted, asked, plain)``."""
+    asked = [0]
+    if integrator is None:
+        def counted(cur, inv_mass, dt, n_steps):
+            n = int(n_steps.max())  # the inner loop's trip count: one read
+            asked[0] += n
+            return integrate_plain(logp_grad, cur, inv_mass, dt, n_steps,
+                                   max_steps=n)
+    else:
+        def counted(cur, inv_mass, dt, n_steps):
+            asked[0] += 1
+            return integrator(cur, inv_mass, dt, n_steps)
+    return counted, asked, integrator is None
+
+
 def make_transition(
     logp_grad: LogpGradFn,
     max_depth: int,
     max_step_halvings: int,
     adapt_step_size: bool,
     integrator=None,
+    bf16_ends: bool = False,
+    unroll: int = 1,
 ) -> Callable[..., TransitionResult]:
     """Build the chain-batched WALNUTS transition (walnuts.hpp:520-563).
 
@@ -484,6 +535,14 @@ def make_transition(
     n_steps (C,) int32) -> (cur', lp)`` (``ops.integrator``); lanes with
     ``n_steps == 0`` must pass through unchanged.
 
+    ``bf16_ends`` stores the merge stack's endpoints in bfloat16 and rounds
+    both operands of every U-turn test to bfloat16: a valid sampler whose
+    U-turn decisions (hence trajectory lengths) shift slightly; the
+    selected draws, the weights and the integration keep full precision.
+    ``unroll`` is the reference's body unroll per loop iteration: its draws
+    do not depend on it, and here it changes nothing (see the module
+    docstring).
+
     The result's ``counts`` hold what the host counted: attempts
     (``n_outer_trips``), the model evaluations it asked for
     (``n_inner_trips``: masked leapfrog steps, or integrator calls) and
@@ -491,22 +550,10 @@ def make_transition(
     attempt and after the last, and one more per attempt for the plain
     inner loop's trip count).
     """
-    plain = integrator is None
-    asked = [0]  # model evaluations the host asked for in this transition
-
-    if plain:
-        def counted(cur, inv_mass, dt, n_steps):
-            n = int(n_steps.max())  # the inner loop's trip count: one read
-            asked[0] += n
-            return integrate_plain(logp_grad, cur, inv_mass, dt, n_steps,
-                                   max_steps=n)
-    else:
-        def counted(cur, inv_mass, dt, n_steps):
-            asked[0] += 1
-            return integrator(cur, inv_mass, dt, n_steps)
-
+    counted, asked, plain = _counted(logp_grad, integrator)
     init_state, body = make_transition_parts(
-        logp_grad, max_depth, max_step_halvings, adapt_step_size, counted)
+        logp_grad, max_depth, max_step_halvings, adapt_step_size, counted,
+        bf16_ends)
 
     def transition(key, theta, step, inv_mass, min_micro, max_error,
                    adam: AdamState) -> TransitionResult:
@@ -539,13 +586,122 @@ def make_transition(
     return transition
 
 
+class FlatBlockResult(NamedTuple):
+    draws: torch.Tensor    # (R, C, D)
+    logps: torch.Tensor    # (R, C)
+    depths: torch.Tensor   # (R, C) int32
+    bank: TransitionState  # run-ahead progress into the next transition
+    counts: TripCounts = TripCounts()
+
+
+def make_flat_sample_block(
+    logp_grad: LogpGradFn,
+    max_depth: int,
+    max_step_halvings: int,
+    integrator=None,
+    bf16_ends: bool = False,
+):
+    """Run-ahead flattened sampling (the reference's function of the same
+    name): a lane that completes a transition banks the draw and starts
+    the next transition at once, and pauses only when it completes a
+    second one before the block's current draw is emitted by every lane.
+
+    Per lane the transitions, their keys and their draws are the classic
+    path's (same body, different scheduling). Each transition saves the
+    classic path's fresh evaluation at its start: the start is the last
+    draw, whose log density and gradient ride the state. The banked
+    run-ahead is work of the next block.
+
+    Returns ``(start_bank, sample_block)``:
+
+    - ``start_bank(key, theta, step, inv_mass, min_micro, adam)`` builds the
+      first transition's state from the warmed-up positions (one counted
+      gradient evaluation);
+    - ``sample_block(bank, step, inv_mass, min_micro, max_error,
+      num_draws, out=None)`` advances every lane by exactly ``num_draws``
+      draws and returns a :class:`FlatBlockResult`; ``out = (draws (R, C,
+      D), logps (R, C))`` is written in place when given. ``bank.n_grads``
+      is cumulative (banked partial work included).
+
+    Each attempt reads ``(emitted & done).all()`` once (and the plain inner
+    loop its trip count); ``counts`` are as in :func:`make_transition`.
+    """
+    counted, asked, plain = _counted(logp_grad, integrator)
+    init_state, body = make_transition_parts(
+        logp_grad, max_depth, max_step_halvings, False, counted, bf16_ends)
+
+    def start_bank(key, theta, step, inv_mass, min_micro, adam):
+        logp0, grad0 = logp_grad(theta)
+        min_micro = min_micro.to(torch.int32)
+        return init_state(key, theta, logp0, grad0, step.to(theta.dtype),
+                          inv_mass, min_micro, adam, torch.ones_like(min_micro))
+
+    def sample_block(bank: TransitionState, step, inv_mass, min_micro,
+                     max_error, num_draws: int, out=None) -> FlatBlockResult:
+        R = int(num_draws)
+        C, D = bank.run_sel.shape
+        dtype, dev = bank.run_sel.dtype, bank.run_sel.device
+        min_micro = min_micro.to(torch.int32)
+        step = step.to(dtype)
+        max_error = torch.as_tensor(max_error, dtype=dtype, device=dev)
+        if out is None:
+            out = (torch.empty((R, C, D), dtype=dtype, device=dev),
+                   torch.empty((R, C), dtype=bank.acc_s.dtype, device=dev))
+        draws, logps = out
+        depths = torch.empty((R, C), dtype=torch.int32, device=dev)
+
+        def reinit(ts):
+            # the next transition starts at the banked draw, whose log
+            # density and gradient the state holds: nothing is re-evaluated
+            return init_state(ts.key, ts.acc_v[:, _THETA_SEL],
+                              ts.acc_s[:, _LOGP_SEL], ts.acc_grad_sel, step,
+                              inv_mass, min_micro, ts.adam, ts.n_grads,
+                              ts.fails)
+
+        ts = bank
+        asked[0] = attempts = syncs = 0
+        for r in range(R):
+            emitted = torch.zeros((C,), dtype=torch.bool, device=dev)
+            draw = torch.zeros_like(ts.run_sel)
+            lp = torch.full_like(ts.run_logw, float("-inf"))
+            dep = torch.zeros_like(ts.depth)
+            while True:
+                # a lane that has emitted this draw and completed the next
+                # transition waits for the others
+                frozen = emitted & ts.done
+                syncs += 1
+                if bool(frozen.all()):
+                    break
+                completing = ts.done & ~emitted
+                draw = torch.where(_r(completing), ts.acc_v[:, _THETA_SEL], draw)
+                lp = torch.where(completing, ts.acc_s[:, _LOGP_SEL], lp)
+                dep = torch.where(completing, ts.out_depth, dep)
+                emitted = emitted | completing
+                ts = tree_where(completing, reinit(ts), ts)
+                ts = tree_where(frozen, ts,
+                                body(ts, step, inv_mass, min_micro, max_error))
+                attempts += 1
+            draws[r].copy_(draw)
+            logps[r].copy_(lp)
+            depths[r].copy_(dep)
+        return FlatBlockResult(
+            draws=draws, logps=logps, depths=depths, bank=ts,
+            counts=TripCounts(asked[0], attempts,
+                              syncs + (attempts if plain else 0)))
+
+    return start_bank, sample_block
+
+
 __all__ = [
     "FailStats",
+    "FlatBlockResult",
     "TransitionResult",
     "TransitionState",
     "TripCounts",
+    "make_flat_sample_block",
     "make_transition",
     "make_transition_parts",
+    "round_bf16",
     "span_combine",
     "span_from_point",
     "span_uturn",

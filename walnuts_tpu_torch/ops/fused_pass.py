@@ -42,7 +42,7 @@ from walnuts_tpu_torch.core.adapt import (
     min_micro_observe,
     tree_where,
 )
-from walnuts_tpu_torch.core.transition import _PH_FWD
+from walnuts_tpu_torch.core.transition import _PH_FWD, round_bf16
 from walnuts_tpu_torch.ops import prng
 from walnuts_tpu_torch.ops.math import (
     count_trailing_zeros,
@@ -73,17 +73,21 @@ def fresh_trajectory(key, theta, logp0, step, inv_mass):
 
 
 def leaf_apply(s, active, step, inv_mass, min_micro, block_draws: int, *,
-               max_depth: int, replay, aux=None):
+               max_depth: int, replay, aux=None, bf16_ends: bool = False):
     """One tier-2 pass over the lane state ``s`` (a ``LaneState``).
 
     ``replay`` is the deferred key-split replay
-    (``prng.replay_split_chain`` or its plain version). ``aux`` is warmup's
-    ``(mass, mm_est, iteration)``, or None when sampling. Returns ``(s',
-    complete, sel_theta, sel_logp, out_depth, bank_idx, aux')``: the new
-    state (fresh tensors) and what :func:`bank_draws` banks.
+    (``prng.replay_split_chain`` or its plain version), or None when the
+    trips split the keys themselves (``defer_splits=False``: ``s.ku`` is
+    then the leaf's subkey). ``aux`` is warmup's ``(mass, mm_est,
+    iteration)``, or None when sampling. Returns ``(s', complete,
+    sel_theta, sel_logp, out_depth, bank_idx, aux')``: the new state and
+    what :func:`bank_draws` banks. ``bf16_ends``: the stack is bfloat16
+    and every U-turn operand is rounded through bfloat16.
     """
     n_slots = max(max_depth - 1, 1)
     jdtype = s.ms_joint.dtype
+    dtype = s.run_sel.dtype
     dev = s.run_sel.device
     pend = active & s.leaf_done
     fwd_th, fwd_rho, fwd_grad = s.fwd_th, s.fwd_rho, s.fwd_grad
@@ -91,11 +95,16 @@ def leaf_apply(s, active, step, inv_mass, min_micro, block_draws: int, *,
     leaf_ok = pend & s.leaf_ok
     leaf_fail = pend & ~s.leaf_ok
 
-    sgn = torch.where(s.forward, 1.0, -1.0).to(s.run_sel.dtype)
+    leaf_th, leaf_rho = fwd_th, fwd_rho
+    if bf16_ends:
+        leaf_th, leaf_rho = round_bf16(leaf_th), round_bf16(leaf_rho)
+    sgn = torch.where(s.forward, 1.0, -1.0).to(dtype)
 
     def uturn_end(old_th, old_rho):
-        delta = _r(sgn) * inv_mass * (fwd_th - old_th)
-        return ((torch.sum(fwd_rho * delta, -1) < 0)
+        if bf16_ends:
+            old_th, old_rho = round_bf16(old_th), round_bf16(old_rho)
+        delta = _r(sgn) * inv_mass * (leaf_th - old_th)
+        return ((torch.sum(leaf_rho * delta, -1) < 0)
                 | (torch.sum(old_rho * delta, -1) < 0))
 
     # merge cascade: sub-U-turn checks against the stacked older-side
@@ -106,20 +115,21 @@ def leaf_apply(s, active, step, inv_mass, min_micro, block_draws: int, *,
     ok = torch.ones_like(leaf_ok)
     for i in range(n_slots):
         do = leaf_ok & (i < n_merges) & ok
-        slot = s.stack_e[:, i]
+        slot = s.stack_e[:, i].to(dtype)
         ut = uturn_end(slot[:, 0], slot[:, 1])
         cur_end = torch.where(do[:, None, None], slot, cur_end)
         ok = ok & ~(do & ut)
     sub_uturn = leaf_ok & ~ok
     leaf_ok = leaf_ok & ok
 
-    # deferred key-split replay: the plain version or the CUDA kernel
-    key_r, ku = replay(s.key, s.ku, s.n_ends, s.leaf_end_at)
-    s = s._replace(key=key_r, ku=ku,
-                   n_ends=torch.zeros_like(s.n_ends),
-                   leaf_end_at=torch.zeros_like(s.leaf_end_at))
+    if replay is not None:
+        # deferred key-split replay: the plain version or the CUDA kernel
+        key_r, ku = replay(s.key, s.ku, s.n_ends, s.leaf_end_at)
+        s = s._replace(key=key_r, ku=ku,
+                       n_ends=torch.zeros_like(s.n_ends),
+                       leaf_end_at=torch.zeros_like(s.leaf_end_at))
     # the three leaf uniforms, from the resolving leaf's subkey
-    unifs = prng.uniform(ku, (3,), s.run_sel.dtype)
+    unifs = prng.uniform(s.ku, (3,), dtype)
 
     new_leaf_idx = s.leaf_idx + 1
     subtree_done = leaf_ok & (new_leaf_idx >= s.n_leaves)
@@ -127,8 +137,8 @@ def leaf_apply(s, active, step, inv_mass, min_micro, block_draws: int, *,
     # stack push: lane i writes slot n_merges[i]
     slots = torch.arange(n_slots, device=dev, dtype=torch.int32)
     write_mask = push[:, None] & (n_merges[:, None] == slots[None, :])
-    stack_e = torch.where(write_mask[:, :, None, None], cur_end[:, None],
-                          s.stack_e)
+    stack_e = torch.where(write_mask[:, :, None, None],
+                          cur_end.to(s.stack_e.dtype)[:, None], s.stack_e)
 
     # reservoir (streaming Barker)
     run_logw_new = log_sum_exp(s.run_logw, fwd_joint)

@@ -1,17 +1,38 @@
-"""Block loops of warmup and sampling, on one device.
+"""Block loops of warmup and sampling.
 
-Counterpart of ``walnuts_tpu/parallel/runtime.py`` for one device, with
-both schedulers: the batched-native one (``batched=True``, the default)
-and the classic per-draw one (``batched=False``), where a block is ``n``
-calls of the step function of ``core/sampler.py`` (the reference's
+Counterpart of ``walnuts_tpu/parallel/runtime.py``, with its keywords
+and defaults, and both schedulers: the classic per-draw one
+(``batched=False``, the default, as in the reference), where a block is
+``n`` calls of the step function of ``core/sampler.py`` (the reference's
 ``lax.scan`` over the vmapped step) and an attempt integrator may replace
-the inner leapfrog loop. Chains advance in blocks of ``block_size``
-iterations; between blocks the cross-chain convergence checks run (the
-geometric-mean test of the adapted tuning during warmup, the log-density
-R-hat during sampling) and may stop the phase early, at the same
-iterations as the reference (``_next_boundary``). Sampling draws are
-written in place into ONE preallocated device tensor, and reach the host
-only when the caller asks for them.
+the inner leapfrog loop, and the batched-native one (``batched=True``).
+Chains advance in blocks of ``block_size`` iterations; between blocks the
+cross-chain convergence checks run (the geometric-mean test of the
+adapted tuning during warmup, the log-density R-hat during sampling) and
+may stop the phase early, at the same iterations as the reference
+(``_next_boundary``). Sampling draws are written in place into ONE
+preallocated tensor: on the device with ``device_draws=True``, else on
+the host (pinned when the chains are on a card), a block's rows copied
+there after the block.
+
+The classic scheduler's options: ``chain_groups > 1`` sorts the chains
+once by their adapted ``min_micro / step`` (NumPy's ``argsort`` in
+float64 on the host, as the reference) and advances the groups one after
+the other in every iteration, so that a slow chain stalls its group only;
+``flatten=True`` runs the flattened run-ahead sampler
+(``core.transition.make_flat_sample_block``). ``_BlockBudget`` caps a
+phase's block length from the walls of its first two blocks
+(``block_budget``, default the ``WALNUTS_BLOCK_BUDGET`` environment
+variable or 45 s; 0 turns it off): the reference keeps a compiled block
+under a worker's time limit with it; here it bounds a block's wall, and
+so how long an interrupt or a checkpoint waits for the block to end.
+Check points stay at ``_next_boundary``'s iterations, so the draws and
+the early-stop decisions do not depend on the cap; but each extra block of
+the batched scheduler pays one counted start gradient and a drain of its
+run-ahead, so a capped run's ``n_grads``, trips and wall follow the host's
+speed. ``walnuts()`` takes the default, as the reference's does; a
+benchmark that compares counts passes ``block_budget=0`` (or sets the
+variable to 0), as ``bench.py`` does.
 
 ``batched_groups > 1`` sorts the chains every block by their cost (the
 adapted ``min_micro / step`` before the first block, the realized
@@ -55,15 +76,15 @@ gloo (CPU ranks, or several ranks sharing one card, which NCCL refuses)
 stages CUDA tensors through host memory. A collective that fails raises;
 so does the next collective of every rank when another rank has died.
 
-Not ported yet (ROADMAP.md): the classic path's ``flatten`` and
-``chain_groups``. The reference's
-automatic block-size cap (``_BlockBudget``) exists to keep one jitted TPU
-program under a worker's time limit; eager blocks here have no such
-limit, so it is not ported.
+Under a mesh the per-lane options work as without one: ``min_latched``
+counts each rank's own lanes (scheduling only), the block budget's cap
+is the smallest of the ranks' caps (one all-reduce after each of the
+first two blocks), and ``chain_groups`` raises, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import threading
 import time
@@ -76,6 +97,7 @@ import torch.distributed as dist
 
 from walnuts_tpu_torch.config import SamplingConfig, WarmupConfig
 from walnuts_tpu_torch.core.adapt import (
+    adam_init,
     adam_step_size,
     mass_estimator_inv_mass,
     min_micro_estimate,
@@ -91,7 +113,11 @@ from walnuts_tpu_torch.core.sampler import (
     make_sample_step,
     make_warmup_step,
 )
-from walnuts_tpu_torch.core.transition import FailStats, TripCounts
+from walnuts_tpu_torch.core.transition import (
+    FailStats,
+    TripCounts,
+    make_flat_sample_block,
+)
 from walnuts_tpu_torch.ops.math import LogpGradFn
 
 CHAIN_AXIS = "chains"
@@ -128,6 +154,12 @@ class ChainSharding:
         t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return bool(t.item())
+
+    def min(self, value: int) -> int:
+        """The smallest of every rank's ``value``."""
+        t = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return int(t.item())
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
@@ -271,6 +303,49 @@ def _next_boundary(it: int, min_iter: int, block_size: int,
     return min(b, max_iter)
 
 
+class _BlockBudget:
+    """The block-length cap of one phase (the reference's class): the
+    first two blocks are timed (a device synchronize ends each), and when
+    one block's wall exceeds ``budget`` seconds, or after two the smaller
+    of their per-draw walls times ``cap`` does, later blocks are capped to
+    0.8 of the budget at that per-draw wall (at least 1 draw). ``budget``
+    None reads ``WALNUTS_BLOCK_BUDGET`` (default 45); 0 turns the cap off.
+    Under a mesh (``shard``) every rank takes the smallest rank's cap after
+    each of the first two blocks, so that all ranks run the same blocks."""
+
+    def __init__(self, budget, cap: int, device, shard: Optional[ChainSharding] = None):
+        if budget is None:
+            budget = float(os.environ.get("WALNUTS_BLOCK_BUDGET", 45.0))
+        self.budget = float(budget)
+        self.cap = int(cap)
+        self.device, self.shard = device, shard
+        self._timed = self._blocks = 0
+        self._est = None
+        self._t0 = None
+
+    def start(self) -> None:
+        self._t0 = (time.perf_counter()
+                    if self.budget > 0 and self._timed < 2 else None)
+
+    def finish(self, n: int) -> None:
+        """After a block of ``n`` draws."""
+        if self._t0 is not None:
+            _sync(self.device)
+            dt = time.perf_counter() - self._t0
+            self._t0 = None
+            per_draw = dt / max(int(n), 1)
+            self._est = per_draw if self._est is None else min(self._est, per_draw)
+            self._timed += 1
+            # at once when one block blew the budget; else once both
+            # timing blocks' per-draw walls are in
+            if dt > self.budget or (self._timed == 2
+                                    and self._est * self.cap > self.budget):
+                self.cap = min(self.cap, max(1, int(self.budget / self._est * 0.8)))
+        if self.shard is not None and self._blocks < 2:
+            self.cap = self.shard.min(self.cap)
+        self._blocks += 1
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -283,6 +358,29 @@ def _refuse_batched_integrator(batched: bool, integrator) -> None:
         raise ValueError(
             "batched is incompatible with a custom integrator "
             "(pass batched=False to use it)")
+
+
+def _refuse_schedulers(batched: bool, flatten: bool, chain_groups: int,
+                       checkpoint) -> None:
+    """The reference's refusals of the classic scheduler's options."""
+    if flatten and chain_groups > 1:
+        raise ValueError("flatten is incompatible with chain_groups")
+    if batched and (flatten or chain_groups > 1):
+        raise ValueError("batched is incompatible with flatten/chain_groups")
+    if checkpoint is not None and (flatten or chain_groups > 1):
+        # the flat scheduler's bank and the group permutation are not part
+        # of the checkpointed state
+        raise ValueError("checkpoint is incompatible with flatten/chain_groups")
+
+
+def _refuse_chain_groups(shard: Optional[ChainSharding], chain_groups: int,
+                         num_chains: int) -> None:
+    if chain_groups > 1:
+        if shard is not None:
+            raise ValueError("chain_groups requires mesh=None")
+        if num_chains % chain_groups:
+            raise ValueError(f"num_chains ({num_chains}) must divide by "
+                             f"chain_groups ({chain_groups})")
 
 
 def _refuse_groups(batched: bool, batched_groups: int, num_chains: int) -> None:
@@ -405,41 +503,74 @@ def _run_grouped(block, state, cost: torch.Tensor, batched_groups: int):
     return new, counts, (new.n_grads - state.n_grads).double()
 
 
+def _cat(trees):
+    """Chain-batched trees (NamedTuples of tensors) concatenated along the
+    chain axis."""
+    t0 = trees[0]
+    if isinstance(t0, tuple):
+        parts = [_cat([t[k] for t in trees]) for k in range(len(t0))]
+        return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
+    return torch.cat(trees)
+
+
+def _merged_stats(state: SampleState, logps: torch.Tensor) -> dict:
+    """Chan et al. merge of a block's per-lane log-density statistics
+    (``logps`` (n, C)) into the running Welford of ``state`` (the classic
+    per-draw statistics). The block's rows are made contiguous, so that a
+    lane's sums do not depend on the chain count (a strided reduction's
+    order does, on the CPU)."""
+    lps = logps.T.contiguous()  # (C, n)
+    cnt_b = float(lps.shape[1])
+    mean_b = torch.mean(lps, dim=1)
+    m2_b = torch.sum((lps - mean_b[:, None]) ** 2, dim=1)
+    tot = state.lp_count + cnt_b
+    delta = mean_b - state.lp_mean
+    return dict(lp_count=tot, lp_mean=state.lp_mean + delta * cnt_b / tot,
+                lp_m2=state.lp_m2 + m2_b + delta**2 * state.lp_count * cnt_b / tot)
+
+
 class _DrawSink:
-    """Where sampling draws go: ONE tensor preallocated on the device for
-    ``max_iter // thin`` rows of ``C`` chains and the kept dimensions, its
-    log densities (in the dtype of the model's value) made at the first
-    block. With no thinning, no dimension subset and one group, a block
-    writes its draws in place into its rows; otherwise into a block
-    buffer of its chains, whose selected rows and columns are copied into
-    the chains' columns (``commit``)."""
+    """Where sampling draws go: ONE tensor preallocated for ``max_iter //
+    thin`` rows of ``C`` chains and the kept dimensions, on the device, or
+    with ``host`` on the host (pinned when ``dev`` is a card), its log
+    densities (in the dtype of the model's value) made at the first
+    block. With no thinning, no dimension subset, one group and the draws
+    on the device, a block writes its draws in place into its rows;
+    otherwise into a block buffer on the device, whose selected rows and
+    columns are copied into the chains' columns (``commit``)."""
 
     def __init__(self, max_iter: int, C: int, D: int, dtype, dev, thin: int,
-                 keep_dims, direct: bool):
-        self.thin, self.direct, self.C, self.D = thin, direct, C, D
+                 keep_dims, direct: bool, host: bool = False):
+        self.thin, self.direct, self.C, self.D = thin, direct and not host, C, D
+        self.dev, self.host = torch.device(dev), host
         self.max_rows = max_iter // thin
         self.keep = (None if keep_dims is None else
                      torch.as_tensor([int(k) for k in keep_dims], dtype=torch.long,
                                      device=dev))
         width = D if keep_dims is None else len(keep_dims)
-        self.draws = torch.empty((self.max_rows, C, width), dtype=dtype, device=dev)
+        self.draws = self._alloc((self.max_rows, C, width), dtype)
         self.logps = None
         self.rows = 0
         self._buf = None
 
+    def _alloc(self, shape, dtype) -> torch.Tensor:
+        if self.host:
+            return torch.empty(shape, dtype=dtype,
+                               pin_memory=self.dev.type == "cuda")
+        return torch.empty(shape, dtype=dtype, device=self.dev)
+
     def out(self, n: int, lanes: int, lp_dtype):
         """The ``out`` of a block of ``n`` draws of ``lanes`` chains."""
         if self.logps is None:
-            self.logps = torch.empty((self.max_rows, self.C), dtype=lp_dtype,
-                                     device=self.draws.device)
+            self.logps = self._alloc((self.max_rows, self.C), lp_dtype)
         r = self.rows
         if self.direct:
             return self.draws[r:r + n], self.logps[r:r + n]
         if self._buf is None or self._buf[0].shape[0] < n or self._buf[0].shape[1] != lanes:
             self._buf = (torch.empty((n, lanes, self.D), dtype=self.draws.dtype,
-                                     device=self.draws.device),
-                         torch.empty((n, lanes), dtype=lp_dtype,
-                                     device=self.draws.device))
+                                     device=self.dev),
+                         torch.empty((n, lanes), dtype=self.logps.dtype,
+                                     device=self.dev))
         return self._buf[0][:n], self._buf[1][:n]
 
     def commit(self, out, idx: Optional[torch.Tensor]) -> None:
@@ -451,6 +582,9 @@ class _DrawSink:
         d, lp = out[0][t - 1::t], out[1][t - 1::t]
         if self.keep is not None:
             d = d.index_select(2, self.keep)
+        if self.host:
+            d, lp = d.cpu(), lp.cpu()
+            idx = None if idx is None else idx.cpu()
         rows = slice(self.rows, self.rows + d.shape[0])
         if idx is None:
             self.draws[rows].copy_(d)
@@ -464,8 +598,7 @@ class _DrawSink:
 
     def result(self):
         if self.logps is None:
-            self.logps = torch.empty((self.max_rows, self.C), dtype=self.draws.dtype,
-                                     device=self.draws.device)
+            self.logps = self._alloc((self.max_rows, self.C), self.draws.dtype)
         return self.draws[:self.rows], self.logps[:self.rows]
 
 
@@ -476,16 +609,21 @@ def run_warmup(
     sampling_cfg: SamplingConfig,
     *,
     save_warmup: bool = False,
+    mesh=None,
     progress=None,
-    info: Optional[RunInfo] = None,
-    batched: bool = True,
     integrator=None,
+    bf16_ends: bool = False,
+    checkpoint=None,
+    start_it: int = 0,
+    unroll: int = 1,
+    info: Optional[RunInfo] = None,
+    batched: bool = False,
+    pallas_replay: bool = False,
     runahead: int = 4,
     tier2_every: int = 6,
     batched_groups: int = 1,
-    checkpoint=None,
-    start_it: int = 0,
-    mesh=None,
+    bounded_sweeps: Optional[bool] = None,
+    block_budget: Optional[float] = None,
 ) -> Tuple[WarmupState, Optional[torch.Tensor], Optional[torch.Tensor], RunInfo]:
     """Adaptive warmup with block-synchronous early stopping.
 
@@ -495,17 +633,25 @@ def run_warmup(
     A ``KeyboardInterrupt`` between blocks ends warmup early and keeps the
     adaptation reached so far.
 
-    ``batched=True`` is the asynchronous batched-native warmup
-    (``runahead``, ``tier2_every``); ``batched_groups > 1`` sorts the
-    lanes into that many cost groups every block (the adapted
-    ``min_micro / step`` first, then each lane's realized gradient count
-    of the block before) and runs the groups one after the other. Both are
-    scheduling only: a lane's draws and adaptation do not change on
-    models without a matrix product. ``batched=False`` is the classic
-    warmup: every iteration is one transition of all chains in lock step,
-    adapted at the draw boundary, and ``integrator`` (see
-    ``ops.integrator``) may run each attempt's leapfrog steps. An
-    integrator with ``batched=True`` raises ``ValueError``.
+    ``batched=False`` (the default) is the classic warmup: every iteration
+    is one transition of all chains in lock step, adapted at the draw
+    boundary; ``integrator`` (see ``ops.integrator``) may run each
+    attempt's leapfrog steps, and ``bf16_ends`` / ``unroll`` go to the
+    transition (``core.transition.make_transition``). ``batched=True`` is
+    the asynchronous batched-native warmup (``runahead``, ``tier2_every``,
+    ``pallas_replay``, ``bounded_sweeps``: see
+    ``core.batched.make_batched_sample_block``); ``batched_groups > 1``
+    sorts the lanes into that many cost groups every block (the adapted
+    ``min_micro / step`` first, then each lane's realized gradient count of
+    the block before) and runs the groups one after the other. Both are
+    scheduling only: a lane's draws and adaptation do not change on models
+    without a matrix product. An integrator with ``batched=True`` raises
+    ``ValueError``.
+
+    ``block_budget`` caps the block length from the first two blocks'
+    walls (``_BlockBudget``; None: ``WALNUTS_BLOCK_BUDGET`` or 45 s, 0:
+    off); the convergence checks stay at the uncapped run's iterations,
+    and a batched block added by the cap counts one more start gradient.
 
     ``checkpoint`` (a ``BlockCheckpointer``) persists the state after
     blocks; ``start_it`` (a block boundary of a restored checkpoint)
@@ -528,10 +674,13 @@ def run_warmup(
     _refuse_groups(batched, batched_groups, C)
     if batched:
         warmup_block = make_batched_warmup_block(
-            logp_grad, sampling_cfg, runahead=runahead, tier2_every=tier2_every)
+            logp_grad, sampling_cfg, pallas_replay=pallas_replay,
+            runahead=runahead, tier2_every=tier2_every,
+            bounded_sweeps=bounded_sweeps)
     else:
         warmup_step = make_warmup_step(logp_grad, sampling_cfg,
-                                       integrator=integrator)
+                                       integrator=integrator,
+                                       bf16_ends=bf16_ends, unroll=unroll)
 
         def warmup_block(ws: WarmupState, n: int, out=None):
             # out: a function of the log density's dtype that returns the
@@ -572,12 +721,16 @@ def run_warmup(
     cost = None
     if warmup_cfg.min_iter == 0 and warmup_cfg.max_iter > 0 and it == 0:
         converged = check()
+    budget = _BlockBudget(block_budget, warmup_cfg.block_size, dev, shard)
     with _Interrupts(shard, info) as interrupts:
         while it < warmup_cfg.max_iter and not converged:
+            # a capped block never crosses a check point: the checks stay
+            # at the iterations of the uncapped run
             next_check = _next_boundary(it, warmup_cfg.min_iter,
                                         warmup_cfg.block_size,
                                         warmup_cfg.max_iter)
-            n = min(warmup_cfg.block_size, next_check - it)
+            n = min(budget.cap, warmup_cfg.block_size, next_check - it)
+            budget.start()
             if batched_groups > 1:
                 if cost is None:  # first block: the pre-adaptation cost heuristic
                     cost = (min_micro_estimate(state.min_micro).double()
@@ -587,6 +740,7 @@ def run_warmup(
                     batched_groups)
             else:
                 state, res = run_block(state, n)
+            budget.finish(n)
             kept = (None, None)  # the block's rows of the saved draws
             if sink is not None:
                 r0 = sink.rows
@@ -622,28 +776,43 @@ def run_sampling(
     params: FrozenParams,
     sampling_cfg: SamplingConfig,
     *,
+    mesh=None,
     info: Optional[RunInfo] = None,
     progress=None,
     on_r_hat=None,
-    batched: bool = True,
     integrator=None,
-    runahead: int = 8,
-    tier2_every: int = 6,
-    pallas_pass: bool = False,
-    pass_tile: Optional[int] = None,
-    batched_groups: int = 1,
-    thin: int = 1,
-    keep_dims=None,
+    bf16_ends: bool = False,
+    chain_groups: int = 1,
+    device_draws: bool = False,
+    flatten: bool = False,
     checkpoint=None,
     start_it: int = 0,
-    mesh=None,
+    thin: int = 1,
+    keep_dims=None,
+    unroll: int = 1,
+    batched: bool = False,
+    batched_groups: int = 1,
+    runahead: int = 8,
+    tier2_every: int = 6,
+    min_latched: int = 0,
+    defer_splits: bool = True,
+    pallas_replay: bool = False,
+    fresh_cur: bool = False,
+    bounded_sweeps: Optional[bool] = None,
+    pallas_pass: bool = False,
+    pass_tile: Optional[int] = None,
+    block_budget: Optional[float] = None,
 ) -> Tuple[SampleState, torch.Tensor, torch.Tensor, RunInfo]:
     """Fixed-parameter sampling with R-hat early stopping.
 
     Returns the final state, the draws ``(iters // thin, C, K)`` and their
     log densities ``(iters // thin, C)`` — slices of one tensor
-    preallocated on the state's device for ``max_iter // thin`` rows and
-    filled in place block by block — and the run info.
+    preallocated for ``max_iter // thin`` rows and filled block by block —
+    and the run info. ``device_draws=True`` keeps that tensor on the
+    state's device, where each block writes in place; ``False`` (the
+    default, as in the reference) keeps it on the host, pinned when the
+    chains are on a card, and each block's rows are copied there after the
+    block.
 
     ``thin > 1`` keeps the last draw of each group of ``thin`` iterations
     (a block whose length is not a multiple gives ``floor(n / thin)``
@@ -652,47 +821,77 @@ def run_sampling(
     None). The sampler still advances every iteration in every dimension,
     and the R-hat controller sees every log density.
 
-    ``batched_groups > 1`` re-sorts the chains every block by their
-    realized gradient count in the block before (the adapted ``min_micro
-    / step`` before the first) and runs the groups one after the other,
-    so that cheap chains stop waiting for the expensive tail. Draws are
-    bitwise the same per lane on models without a matrix product. The
-    sort stays on the device. Batched only.
-
-    ``batched=False`` is the classic sampler: every iteration is one
-    transition of all chains in lock step (each pass of its attempt loop
-    waits for the slowest chain), with the per-draw Welford update, and
+    ``batched=False`` (the default) is the classic sampler: every iteration
+    is one transition of all chains in lock step (each pass of its attempt
+    loop waits for the slowest chain), with the per-draw Welford update;
     ``integrator`` (see ``ops.integrator``) may run each attempt's leapfrog
-    steps. Per lane its draws are the batched scheduler's; ``n_grads`` is
-    one higher per draw (every transition re-evaluates its start point).
-    An integrator with ``batched=True`` raises ``ValueError``.
+    steps, and ``bf16_ends`` / ``unroll`` go to the transition.
+    ``chain_groups > 1`` sorts the chains by their adapted ``min_micro /
+    step`` (NumPy's ``argsort`` on the host, as in the reference) and
+    advances the groups one after the other in every iteration, so that a
+    slow chain stalls its own group only; the outputs come back in the
+    caller's chain order, and every chain's results are the ungrouped
+    run's. ``flatten=True`` runs the flattened run-ahead sampler
+    (``core.transition.make_flat_sample_block``): the same draws per chain;
+    the bank's start costs one counted gradient, and no transition
+    re-evaluates its start point; the returned key is the bank's, which has
+    run ahead into the next transition.
 
+    ``batched=True`` is the batched-native scheduler: ``runahead``,
+    ``tier2_every``, ``min_latched``, ``defer_splits``, ``pallas_replay``,
+    ``fresh_cur``, ``bounded_sweeps`` and ``bf16_ends`` go to
+    ``core.batched.make_batched_sample_block``. Per lane its draws are the
+    classic path's; ``n_grads`` is one lower per draw but the first of a
+    block (it caches a draw's start gradient). ``batched_groups > 1``
+    re-sorts the chains every block by their realized gradient count in
+    the block before (the adapted ``min_micro / step`` before the first)
+    and runs the groups one after the other; the sort stays on the device.
     ``pallas_pass=True`` runs each tier-2 pass as one launch of the fused
     pass kernel (CUDA tensors; the plain version on the CPU) with
-    ``pass_tile`` chains per CUDA block; the chains are the unfused
-    pass's. Off by default, as in the reference; batched only.
+    ``pass_tile`` chains per CUDA block; the chains are the unfused pass's.
 
-    ``checkpoint`` (a ``BlockCheckpointer``) persists the state, the
-    parameters and each block's kept draws (one device-to-host copy a
-    block); ``start_it`` resumes at a checkpointed block boundary, and the
-    draws returned then cover ``[start_it, end)`` only.
+    Refused with ``ValueError``, as in the reference: ``flatten`` with
+    ``chain_groups``; ``batched`` with either, or with an ``integrator``;
+    ``checkpoint`` with either; ``chain_groups`` under a mesh or not
+    dividing the chains; ``batched_groups`` without ``batched`` or under a
+    mesh; ``pallas_pass`` with an option its kernel does not compute.
+
+    ``block_budget``: as in :func:`run_warmup`. ``checkpoint`` (a
+    ``BlockCheckpointer``) persists the state, the parameters and each
+    block's kept draws; ``start_it`` resumes at a checkpointed block
+    boundary, and the draws returned then cover ``[start_it, end)`` only.
 
     ``mesh``: as in ``run_warmup``; ``state`` and ``params`` are whole on
     every rank, and so are the returned state, draws and counters.
     """
+    _refuse_schedulers(batched, flatten, chain_groups, checkpoint)
     _refuse_batched_integrator(batched, integrator)
     shard = chain_sharding(mesh)
     _refuse_mesh(shard, batched_groups, state.theta.shape[0])
+    _refuse_chain_groups(shard, chain_groups, state.theta.shape[0])
     state, params = _local(state, shard), _local(params, shard)
     C, D = state.theta.shape
     _refuse_groups(batched, batched_groups, C)
     _refuse_thin(thin, sampling_cfg.block_size)
+    if pallas_pass and not batched:
+        raise ValueError("pallas_pass requires batched=True (the classic "
+                         "path has no tier-2 pass)")
     dev = state.theta.device
     dtype = state.theta.dtype
     max_error = torch.tensor(sampling_cfg.max_hamiltonian_error, dtype=dtype,
                              device=dev)
     sink = _DrawSink(sampling_cfg.max_iter - start_it, C, D, dtype, dev, thin, keep_dims,
-                     direct=thin == 1 and keep_dims is None and batched_groups == 1)
+                     direct=thin == 1 and keep_dims is None and batched_groups == 1,
+                     host=not device_draws)
+    permutation = None
+    if chain_groups > 1:
+        # the reference's sort: NumPy's (unstable) argsort of the float64
+        # adapted cost, on the host
+        cost = (params.min_micro.cpu().numpy().astype(np.float64)
+                / params.step_size.cpu().numpy().astype(np.float64))
+        permutation = np.argsort(cost)
+        perm = torch.as_tensor(permutation, device=dev)
+        state, params = _tree_take(state, perm), _tree_take(params, perm)
     if batched:
         start_blk, sample_blk = make_batched_sample_block(
             logp_grad,
@@ -700,6 +899,12 @@ def run_sampling(
             sampling_cfg.max_step_halvings,
             runahead=runahead,
             tier2_every=tier2_every,
+            bf16_ends=bf16_ends,
+            min_latched=min_latched,
+            defer_splits=defer_splits,
+            pallas_replay=pallas_replay,
+            fresh_cur=fresh_cur,
+            bounded_sweeps=bounded_sweeps,
             pallas_pass=pallas_pass,
             pass_tile=pass_tile,
         )
@@ -711,48 +916,70 @@ def run_sampling(
             res = sample_blk(st, p.step_size, p.inv_mass, p.min_micro,
                              max_error, n, out=out)
             sink.commit(out, idx)
-            # Chan et al. merge of the block's per-lane log-density stats
-            # into the running Welford (the classic per-draw statistics);
-            # contiguous rows, so that a lane's sums do not depend on the
-            # chain count (a strided reduction's order does, on the CPU)
-            lps = res.logps.T.contiguous()  # (C, n)
-            cnt_b = float(n)
-            mean_b = torch.mean(lps, dim=1)
-            m2_b = torch.sum((lps - mean_b[:, None]) ** 2, dim=1)
-            tot = state.lp_count + cnt_b
-            delta = mean_b - state.lp_mean
             state = state._replace(
                 key=res.key,
-                # a row of the cube, or of a block buffer the next block
+                # a row of the draws, or of a block buffer the next block
                 # (or group) writes
                 theta=res.draws[-1] if sink.direct else res.draws[-1].clone(),
                 # + 1: the block-entry gradient start_blk evaluated
                 n_grads=state.n_grads + res.n_grads_delta + 1,
                 fails=FailStats(*(a + b for a, b in zip(state.fails,
                                                         res.fails_delta))),
-                lp_count=tot,
-                lp_mean=state.lp_mean + delta * cnt_b / tot,
-                lp_m2=state.lp_m2 + m2_b + delta**2 * state.lp_count * cnt_b / tot,
+                **_merged_stats(state, res.logps),
             )
             return state, res
+    elif flatten:
+        start_bank, flat_block = make_flat_sample_block(
+            logp_grad, sampling_cfg.max_trajectory_doublings,
+            sampling_cfg.max_step_halvings, integrator=integrator,
+            bf16_ends=bf16_ends)
+        bank = start_bank(state.key, state.theta, params.step_size,
+                          params.inv_mass, params.min_micro,
+                          adam_init(params.step_size.to(dtype)))
+        # the bank's start gradient is real work
+        state = state._replace(n_grads=state.n_grads + 1)
+
+        def run_block(state: SampleState, p: FrozenParams, n: int, idx=None):
+            nonlocal bank
+            out = sink.out(n, C, bank.acc_s.dtype)
+            res = flat_block(bank, p.step_size, p.inv_mass, p.min_micro,
+                             max_error, n, out=out)
+            sink.commit(out, idx)
+            state = state._replace(
+                key=res.bank.key,
+                theta=res.draws[-1] if sink.direct else res.draws[-1].clone(),
+                n_grads=state.n_grads + (res.bank.n_grads - bank.n_grads),
+                fails=FailStats(*(a + (b - c) for a, b, c in zip(
+                    state.fails, res.bank.fails, bank.fails))),
+                **_merged_stats(state, res.logps),
+            )
+            bank = res.bank
+            return state, res.counts
     else:
-        if pallas_pass:
-            raise ValueError("pallas_pass requires batched=True (the classic "
-                             "path has no tier-2 pass)")
         sample_step = make_sample_step(logp_grad, sampling_cfg,
-                                       integrator=integrator)
+                                       integrator=integrator,
+                                       bf16_ends=bf16_ends, unroll=unroll)
+        cg = C // chain_groups
+        cols = [slice(g * cg, (g + 1) * cg) for g in range(chain_groups)]
 
         def run_block(state: SampleState, p: FrozenParams, n: int, idx=None):
             counts, out = TripCounts(), None
+            if chain_groups > 1:
+                subs = [_map(lambda x: x[c], state) for c in cols]
+                subp = [_map(lambda x: x[c], p) for c in cols]
+            else:
+                subs, subp = [state], [p]
             for i in range(n):
-                state, res = sample_step(state, p)
-                counts += res.counts
-                if out is None:
-                    out = sink.out(n, C, res.logp.dtype)
-                out[0][i].copy_(res.theta)
-                out[1][i].copy_(res.logp)
+                # the groups one after the other (the reference's lax.map)
+                for g, c in enumerate(cols):
+                    subs[g], res = sample_step(subs[g], subp[g])
+                    counts += res.counts
+                    if out is None:
+                        out = sink.out(n, C, res.logp.dtype)
+                    out[0][i, c].copy_(res.theta)
+                    out[1][i, c].copy_(res.logp)
             sink.commit(out, idx)
-            return state, counts
+            return (_cat(subs) if chain_groups > 1 else subs[0]), counts
 
     info = info or RunInfo()
     t0 = time.perf_counter()
@@ -760,12 +987,14 @@ def run_sampling(
     # a resumed run that had stopped on R-hat stays stopped
     converged = bool(info.converged_sampling) if start_it > 0 else False
     cost = None
+    budget = _BlockBudget(block_budget, sampling_cfg.block_size, dev, shard)
     with _Interrupts(shard, info) as interrupts:
         while it < sampling_cfg.max_iter and not converged:
             next_check = _next_boundary(it, sampling_cfg.min_iter,
                                         sampling_cfg.block_size,
                                         sampling_cfg.max_iter)
-            n = min(sampling_cfg.block_size, next_check - it)
+            n = min(budget.cap, sampling_cfg.block_size, next_check - it)
+            budget.start()
             if batched_groups > 1:
                 if cost is None:  # first block: the adapted per-draw cost
                     cost = params.min_micro.double() / params.step_size.double()
@@ -774,6 +1003,7 @@ def run_sampling(
                     state, cost, batched_groups)
             else:
                 state, res = run_block(state, params, n)
+            budget.finish(n)
             r0 = sink.rows
             sink.advance(n)
             info._count("sampling", res)
@@ -800,10 +1030,21 @@ def run_sampling(
         # the final R-hat flag (see run_warmup): an early-stopped run
         # called again returns the same draws
         checkpoint.update_info("sampling", it, info)
+    draws, logps = sink.result()
+    if permutation is not None:
+        # the caller's chain order
+        inverse = torch.as_tensor(np.argsort(permutation))
+        state = _tree_take(state, inverse.to(dev))
+        draws = draws.index_select(1, inverse.to(draws.device))
+        logps = logps.index_select(1, inverse.to(logps.device))
     state = _whole(state, shard)
     info.n_grads = state.n_grads.cpu().numpy()
     info._fails(state.fails)
-    draws, logps = _whole(sink.result(), shard, 1)
+    if shard is not None:  # gathered on the rank's device
+        home = draws.device
+        draws, logps = _whole((draws.to(shard.device), logps.to(shard.device)),
+                              shard, 1)
+        draws, logps = draws.to(home), logps.to(home)
     return state, draws, logps, info
 
 
