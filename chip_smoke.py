@@ -977,9 +977,15 @@ def run_main_path(card: str, ref) -> dict:
     for phase in ("warmup", "sampling"):
         nb = info.n_blocks[phase]
         print(f"[main path] {phase}: {nb} blocks, {info.n_inner_trips[phase]} "
-              f"trips, {info.n_outer_trips[phase]} tier-2 passes, "
+              f"trips, {info.n_outer_trips[phase]} tier-2 passes "
+              f"({info.n_pass_replays[phase]} CUDA graph replays, "
+              f"{info.n_pass_captures[phase]} captures), "
               f"{info.n_syncs[phase]} syncs ({info.n_syncs[phase] / nb:.1f} "
               f"per block)  [{card}]")
+        replays, passes = info.n_pass_replays[phase], info.n_outer_trips[phase]
+        if DEVICE == "cuda" and replays != passes:
+            raise AssertionError(f"main path {phase}: {replays} graph replays "
+                                 f"for {passes} passes")
     print(f"[main path] peak device memory {peak / 2**20:.1f} MiB  [{card}]")
     print(f"[main path] launches on the main path: {json.dumps(launches)}  [{card}]")
     return launches, path_replay_ms(card, recording.calls)
@@ -1304,7 +1310,13 @@ class _Recording:
     """Stands in for a kernel's wrapper (an attempt integrator, the
     replay, the logistic regression) and keeps a copy of the operands of
     every ``every``-th call. Its ``launches`` is the wrapper's: a wrapper
-    that counts through its module's name for itself counts on."""
+    that counts through its module's name for itself counts on, and so do
+    the replays of a CUDA graph that holds the kernel. A call while a graph
+    is captured launches nothing and keeps no operands (a copy made then
+    would be a node of the graph, its values unwritten): the tier-2 pass's
+    graph replays kernel 1 without a host call, so the kept calls of
+    kernel 1 on the batched paths are the eager pass before each capture
+    and, with ``defer_splits=False``, the trips' splits."""
 
     def __init__(self, integrator, every: int = 1):
         self.integrator, self.calls, self.every, self.seen = integrator, [], every, 0
@@ -1318,6 +1330,8 @@ class _Recording:
         self.integrator.launches = n
 
     def __call__(self, *args):
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return self.integrator(*args)
         if self.seen % self.every == 0:
             self.calls.append(tuple(a.clone() for a in args))
         self.seen += 1

@@ -59,7 +59,7 @@ def assert_counters_equal(i, j):
     """Every RunInfo counter but the wall seconds."""
     for k in ("warmup_iters", "sampling_iters", "rhat_trace", "converged_warmup",
               "converged_sampling", "n_inner_trips", "n_outer_trips", "n_syncs",
-              "n_blocks"):
+              "n_pass_replays", "n_pass_captures", "n_blocks"):
         assert getattr(i, k) == getattr(j, k), k
     for k in ("n_grads", "n_halve_fail", "n_nonfinite", "n_depth_exhausted"):
         np.testing.assert_array_equal(getattr(i, k), getattr(j, k))

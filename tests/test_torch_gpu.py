@@ -46,6 +46,12 @@ protocol and KS thresholds (``tests/test_native_parity.py``: float64,
 4096 with 1 and 4 cost-sorted groups bit for bit; and the fused pass at
 D = 1003 on lane states of a run from a warmed stochastic-volatility
 state, against plain by the smoke's criterion.
+
+The unfused tier-2 pass, which the card replays as one CUDA graph a shape:
+warmup and sampling of logreg x 4096 (kernel 2) and of funnel(101) x 4096
+in 4 groups, through the graph and through the eager pass, bit for bit
+(draws, log densities, depths, keys, counters, trips, passes, syncs), with
+every pass a replay and kernel 1 counted at each replay.
 """
 
 import os
@@ -1132,3 +1138,124 @@ def test_device_draws_placement_on_card(cuda, device_draws):
     assert d.device.type == ("cuda" if device_draws else "cpu")
     assert d.is_pinned() == (not device_draws)
     assert torch.equal(d.cpu(), d_ref.cpu())
+
+
+# --- the unfused pass replayed as a CUDA graph ----------------------------
+
+
+def _routes(monkeypatch, logp_grad, ws, wcfg, scfg, **kw):
+    """``ws``'s warmup and then sampling on the card (``run_warmup`` /
+    ``run_sampling``, batched, ``kw``), once through the CUDA graph of each
+    pass and once through the eager pass. Per route: the draws and log
+    densities of both phases, every block's depths, end keys and counter
+    deltas, the final states, the RunInfo and kernel 1's launches."""
+    from walnuts_tpu_torch.core import batched
+    from walnuts_tpu_torch.parallel import runtime
+
+    warm_factory = runtime.make_batched_warmup_block
+    sample_factory = runtime.make_batched_sample_block
+    routes = {}
+    for graphed in (True, False):
+        blocks = []
+
+        def kept(res):
+            blocks.append(tuple(t.cpu() for t in (res.depths, res.key,
+                                                  res.n_grads_delta, *res.fails_delta)))
+
+        def warm(*a, **k):
+            block = warm_factory(*a, **k)
+
+            def run(ws, n, out=None):
+                ws, res = block(ws, n, out)
+                kept(res)
+                return ws, res
+            return run
+
+        def sample(*a, **k):
+            start, block = sample_factory(*a, **k)
+
+            def run(*b, **c):
+                res = block(*b, **c)
+                kept(res)
+                return res
+            return start, run
+
+        monkeypatch.setattr(batched, "_graph_passes", lambda device, g=graphed: g)
+        monkeypatch.setattr(runtime, "make_batched_warmup_block", warm)
+        monkeypatch.setattr(runtime, "make_batched_sample_block", sample)
+        before = prng.replay_split_chain.launches
+        w, wd, wl, info = runtime.run_warmup(
+            logp_grad, _clone_tree(ws), wcfg, scfg, batched=True, save_warmup=True,
+            block_budget=0, runahead=4, tier2_every=12, **kw)
+        s, d, lp, info = runtime.run_sampling(
+            logp_grad, init_sample_state(w), freeze_params(w), scfg, info=info,
+            batched=True, device_draws=True, block_budget=0, **kw)
+        torch.cuda.synchronize()
+        routes[graphed] = dict(
+            out=tuple(t.cpu() for t in (wd, wl, d, lp)) + tuple(blocks),
+            states=(_clone_tree(w), _clone_tree(s)), info=info,
+            launches=prng.replay_split_chain.launches - before)
+    return routes[True], routes[False]
+
+
+def _assert_routes_bitwise(graph, eager):
+    from walnuts_tpu_torch.ops.fused_pass import _leaves
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same(a, b):
+        a, b = _leaves(a), _leaves(b)
+        return len(a) == len(b) and all(
+            x.shape == y.shape and torch.equal(bits(x.cpu()), bits(y.cpu()))
+            for x, y in zip(a, b))
+
+    assert same(graph["out"], eager["out"]), "draws, log densities or blocks differ"
+    assert same(graph["states"], eager["states"]), "end states differ"
+    gi, ei = graph["info"], eager["info"]
+    for k in ("n_inner_trips", "n_outer_trips", "n_syncs", "n_blocks"):
+        assert getattr(gi, k) == getattr(ei, k), k
+    for k in ("n_grads", "n_halve_fail", "n_nonfinite", "n_depth_exhausted"):
+        np.testing.assert_array_equal(getattr(gi, k), getattr(ei, k))
+    assert gi.n_pass_replays == gi.n_outer_trips
+    assert gi.n_pass_captures == {"warmup": 1, "sampling": 1}  # one shape a phase
+    assert ei.n_pass_replays == ei.n_pass_captures == {"warmup": 0, "sampling": 0}
+    # kernel 1 once a pass on either route, and once in the eager pass
+    # before each capture
+    assert eager["launches"] == sum(ei.n_outer_trips.values())
+    assert graph["launches"] == (sum(gi.n_pass_replays.values())
+                                 + sum(gi.n_pass_captures.values()))
+
+
+def test_graphed_pass_is_the_eager_pass_on_logreg_card(cuda, monkeypatch):
+    """logreg(25) x 4096 with kernel 2, float32, 10 + 10 in blocks of 5:
+    the pass replayed as one CUDA graph a phase gives the eager pass's
+    draws, log densities, depths, keys, counters, trips, passes and syncs
+    bit for bit, and replays every pass."""
+    lg, dim = logistic_regression_fused(device="cuda")
+    c = 4096
+    wcfg = WarmupConfig(min_iter=10, max_iter=10, block_size=5)
+    scfg = SamplingConfig(min_iter=10, max_iter=10, block_size=5, max_step_halvings=8)
+    keys = prng.fold_in(prng.key(61, cuda), torch.arange(c, device=cuda))
+    theta = 0.5 * prng.normal(prng.key(62, cuda), (c, dim), torch.float32)
+    ws = init_warmup_state(keys, theta, torch.ones_like(theta),
+                           torch.full((c,), 0.1, device=cuda), wcfg, scfg)
+    _assert_routes_bitwise(*_routes(monkeypatch, lg, ws, wcfg, scfg))
+
+
+def test_graphed_pass_is_the_eager_pass_on_funnel_groups_card(cuda, monkeypatch):
+    """funnel(101) x 4096, float32, 4 cost-sorted groups, 3 + 3 in blocks
+    of one: every group replays its phase's one graph (the groups share a
+    shape), and each route is the other bit for bit."""
+    from walnuts_tpu_torch.models import funnel
+    from walnuts_tpu_torch.ops.math import make_logp_grad
+
+    c, dim = 4096, 101
+    wcfg = WarmupConfig(min_iter=3, max_iter=3, block_size=1)
+    scfg = SamplingConfig(min_iter=3, max_iter=3, block_size=1, max_step_halvings=8)
+    keys = prng.fold_in(prng.key(63, cuda), torch.arange(c, device=cuda))
+    theta = prng.normal(prng.key(64, cuda), (c, dim), torch.float32)
+    ws = init_warmup_state(keys, theta, torch.ones_like(theta),
+                           torch.full((c,), 0.2, device=cuda), wcfg, scfg)
+    _assert_routes_bitwise(*_routes(monkeypatch, make_logp_grad(funnel(dim)[0]), ws,
+                                    wcfg, scfg, batched_groups=4))

@@ -11,6 +11,7 @@ onto the other. Updates are pure functions, as in the reference.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -147,9 +148,11 @@ def mass_estimator_inv_mass(state: MassEstimatorState) -> torch.Tensor:
     inv = torch.sqrt(online_moments_variance(state.draws)
                      / online_moments_variance(state.scores))
     inv = torch.where(torch.isnan(inv), torch.ones_like(inv), inv)
-    tiny = torch.sqrt(torch.tensor(torch.finfo(inv.dtype).tiny, dtype=inv.dtype,
-                                   device=inv.device))
-    return torch.minimum(torch.maximum(inv, tiny), 1.0 / tiny)
+    # sqrt(tiny) is a power of two (2^-63, 2^-511), exact as a Python float:
+    # a tensor made from a host number would be a copy that waits for the
+    # stream, which a CUDA graph's capture refuses
+    tiny = math.sqrt(torch.finfo(inv.dtype).tiny)
+    return torch.clamp(inv, tiny, 1.0 / tiny)
 
 
 class MinMicroState(NamedTuple):

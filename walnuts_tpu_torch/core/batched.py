@@ -21,6 +21,14 @@ What changes in PyTorch:
   the block's output at its draw index, in place; ``runahead`` B still
   caps how far a lane may run ahead of the slowest (``cap``). The emitted
   draws are the same: a slot is never overwritten before it is emitted.
+* The pass on the card. Its ~1200 small operations would each cost the
+  host a launch while the device idles, so on CUDA tensors each shape's
+  pass is captured once as a CUDA graph and replayed
+  (``ops.fused_pass.GraphedPass``): the lane state is copied into the
+  graph's input buffers, and the block's outputs are banked eagerly. The
+  arithmetic is ``leaf_apply``'s, so the draws are the eager pass's bit
+  for bit; CPU tensors run the eager pass. ``n_pass_replays`` and
+  ``n_pass_captures`` count the replays and captures.
 * Options: every one of the reference's factory. ``pallas_pass=True``
   runs each sampling pass as one launch of the fused-pass kernel
   (``ops.fused_pass``); the pass's arithmetic (``ops.fused_pass.leaf_apply``)
@@ -60,6 +68,7 @@ from walnuts_tpu_torch.core.adapt import (
 from walnuts_tpu_torch.core.transition import _PH_FWD, _PH_REV, FailStats
 from walnuts_tpu_torch.ops import prng
 from walnuts_tpu_torch.ops.fused_pass import (
+    GraphedPass,
     bank_draws,
     fresh_trajectory,
     fused_pass,
@@ -141,11 +150,20 @@ class BatchedBlockResult(NamedTuple):
     n_inner_trips: int         # batched gradient evaluations
     n_outer_trips: int         # tier-2 passes
     n_syncs: int               # device-to-host reads of loop conditions
+    n_pass_replays: int = 0    # passes a GraphedPass ran (replays on the card)
+    n_pass_captures: int = 0   # CUDA graphs captured
 
 
 def _r(pred: torch.Tensor) -> torch.Tensor:
     """A per-lane ``(C,)`` predicate as a row mask ``(C, 1)``."""
     return pred[:, None]
+
+
+def _graph_passes(device: torch.device) -> bool:
+    """Whether the unfused pass runs as ``ops.fused_pass.GraphedPass``: on
+    the card, where each of a pass's ~1200 operations would otherwise cost
+    the host a launch while the device waits."""
+    return device.type == "cuda"
 
 
 def make_batched_sample_block(
@@ -370,6 +388,17 @@ def make_batched_sample_block(
             n_grads=n_grads, fails=fails,
         )
 
+    # a GraphedPass for each key of the pass's arguments (max_depth,
+    # bf16_ends and defer_splits are the factory's), freed with the factory
+    graphs = {}
+
+    def _pass_graph(args, R: int, replay) -> GraphedPass:
+        key = GraphedPass.key(args, R)
+        if key not in graphs:
+            graphs[key] = GraphedPass(args, R, max_depth=max_depth,
+                                      replay=replay, bf16_ends=bf16_ends)
+        return graphs[key]
+
     def _run(state: LaneState, aux, step, inv_mass, min_micro, max_error,
              num_draws: int, out):
         """The block loop shared by sampling (``aux`` None) and warmup."""
@@ -384,7 +413,9 @@ def make_batched_sample_block(
         depths = torch.empty((R, C), dtype=torch.int32, device=dev)
         # a copy: the fused pass updates n_depth_exhausted in place
         n_grads0, fails0 = state.n_grads, FailStats(*(f.clone() for f in state.fails))
-        n_inner = n_outer = n_syncs = 0
+        n_inner = n_outer = n_syncs = n_replays = 0
+        graph = captures0 = None
+        replay = prng.replay_split_chain if defer_splits else None
         for r in range(R):
             cap = min(R, r + B)
             while True:
@@ -415,22 +446,32 @@ def make_batched_sample_block(
                                max_depth, (draws, logps, depths),
                                pass_tile=pass_tile)
                     continue
-                state, complete, sel_theta, sel_logp, out_depth, bank_idx, aux = (
-                    leaf_apply(state, active, step, inv_mass, min_micro, R,
-                               max_depth=max_depth,
-                               replay=prng.replay_split_chain if defer_splits
-                               else None,
-                               aux=None if aux is None else aux[:3],
-                               bf16_ends=bf16_ends))
+                args = (state, active, step, inv_mass, min_micro,
+                        None if aux is None else aux[:3])
+                if graph is None and _graph_passes(dev):
+                    graph = _pass_graph(args, R, replay)
+                    captures0 = graph.captures
+                if graph is not None:
+                    applied = graph.run(args)
+                    n_replays += 1
+                else:
+                    applied = leaf_apply(*args[:5], R, max_depth=max_depth,
+                                         replay=replay, aux=args[5],
+                                         bf16_ends=bf16_ends)
+                state, complete, sel_theta, sel_logp, out_depth, bank_idx, aux = applied
                 # bank completed draws in place at their draw index
                 bank_draws((draws, logps, depths), complete, sel_theta,
                            sel_logp, out_depth, bank_idx)
+        if graph is not None:  # the next replay overwrites the graph's outputs
+            state, aux = graph.detach((state, aux))
         res = BatchedBlockResult(
             draws=draws, logps=logps, depths=depths, key=state.key,
             # the block's own work: excludes start_block's evaluation
             n_grads_delta=state.n_grads - n_grads0,
             fails_delta=FailStats(*(a - b for a, b in zip(state.fails, fails0))),
             n_inner_trips=n_inner, n_outer_trips=n_outer, n_syncs=n_syncs,
+            n_pass_replays=n_replays,
+            n_pass_captures=0 if graph is None else graph.captures - captures0,
         )
         return res, state, aux
 

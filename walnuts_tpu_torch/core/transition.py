@@ -141,12 +141,15 @@ class TripCounts(NamedTuple):
     """What the host counted while it drove the device (plain ints):
     model evaluations it asked for (masked leapfrog steps of the plain inner
     loop, or integrator calls), loop passes (attempts on the classic path,
-    tier-2 passes on the batched one) and device-to-host reads of loop
-    conditions."""
+    tier-2 passes on the batched one), device-to-host reads of loop
+    conditions, and the batched scheduler's tier-2 passes run as a CUDA
+    graph's replay and graphs captured (``core.batched``)."""
 
     n_inner_trips: int = 0
     n_outer_trips: int = 0
     n_syncs: int = 0
+    n_pass_replays: int = 0
+    n_pass_captures: int = 0
 
     def __add__(self, other):  # field-wise, not tuple concatenation
         return TripCounts(*(a + b for a, b in zip(self, other)))

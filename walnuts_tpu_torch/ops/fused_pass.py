@@ -12,7 +12,8 @@ the port run it:
 
 - the unfused route (``core/batched.py``, ``pallas_pass=False``) calls it
   with ``prng.replay_split_chain`` (the replay kernel on the card) and
-  banks with :func:`bank_draws`;
+  banks with :func:`bank_draws`; on the card through :class:`GraphedPass`,
+  which replays one CUDA graph of it a shape;
 - :func:`fused_pass_plain` calls it with the plain replay, banks, and
   writes the new lane fields back into the state's tensors in place.
 
@@ -324,6 +325,122 @@ def bank_draws(out, complete, sel_theta, sel_logp, out_depth, bank_idx):
     draws[idx, lanes] = torch.where(_r(complete), sel_theta, draws[idx, lanes])
     logps[idx, lanes] = torch.where(complete, sel_logp, logps[idx, lanes])
     depths[idx, lanes] = torch.where(complete, out_depth, depths[idx, lanes])
+
+
+# ---------------------------------------------------------------------------
+# the unfused pass over fixed buffers (a CUDA graph on the card)
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of tuples and NamedTuples (None holds none),
+    depth first."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [t for part in tree for t in _leaves(part)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in order, by those of the
+    iterator ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        parts = [_rebuild(part, leaves) for part in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return next(leaves)
+
+
+class GraphedPass:
+    """The unfused tier-2 pass for one shape of its arguments, over fixed
+    input and output buffers.
+
+    :meth:`run` takes :func:`leaf_apply`'s arguments ``(s, active, step,
+    inv_mass, min_micro, aux)``, copies them into the input buffers (one
+    ``torch._foreach_copy_`` a dtype) and returns :func:`leaf_apply`'s
+    results for them, bit for bit. On CUDA tensors the first run computes
+    one eager pass on the buffers (every library loaded, nothing built
+    during capture) and captures the pass as a CUDA graph, and every run
+    replays that graph: a pass costs the host a few launches instead of one
+    an operation, and the replay (kernel 1) stays a node of the graph, which
+    ``replay.launches`` counts at each replay. On CPU tensors every run
+    computes the pass eagerly and copies it into the output buffers.
+
+    Each result is a buffer that the next run overwrites: an output buffer,
+    or an input buffer where the pass hands an argument through unchanged.
+    :meth:`detach` copies the buffers in whatever a caller keeps beyond the
+    next run.
+    """
+
+    def __init__(self, args, block_draws: int, *, max_depth: int, replay,
+                 bf16_ends: bool = False):
+        self.inputs = [t.clone() for t in _leaves(args)]
+        self._args = _rebuild(args, iter(self.inputs))
+        self._kw = dict(max_depth=max_depth, replay=replay, bf16_ends=bf16_ends)
+        self._block_draws = block_draws
+        by_dtype = {}
+        for i, t in enumerate(self.inputs):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        self._copies = [(idx, [self.inputs[i] for i in idx])
+                        for idx in by_dtype.values()]
+        self.graph = None
+        self.captures = 0
+        self.outputs = None    # the results' tensors, depth first
+        self._results = None   # leaf_apply's results of the input buffers
+        self._launches = 0     # kernel-1 launches in the graph
+
+    @staticmethod
+    def key(args, block_draws: int) -> tuple:
+        """What changes a pass's launches, given the factory's options: the
+        block's draw count R and each argument's dtype, shape and device
+        (the phase, C and D among them). ``cap`` enters through
+        ``active``'s values only."""
+        return block_draws, tuple((t.dtype, t.shape, t.device) for t in _leaves(args))
+
+    def _apply(self):
+        s, active, step, inv_mass, min_micro, aux = self._args
+        return leaf_apply(s, active, step, inv_mass, min_micro,
+                          self._block_draws, aux=aux, **self._kw)
+
+    def _capture(self) -> None:
+        self._apply()
+        replay = self._kw["replay"]
+        before = 0 if replay is None else replay.launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            results = self._apply()
+        if replay is not None:  # a capture launches nothing; a replay does
+            self._launches = replay.launches - before
+            replay.launches = before
+        self.captures += 1
+        self._results, self.outputs = results, _leaves(results)
+
+    def run(self, args):
+        leaves = _leaves(args)
+        for idx, bufs in self._copies:
+            torch._foreach_copy_(bufs, [leaves[i] for i in idx])
+        if self.inputs[0].is_cuda:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            if self._launches:
+                self._kw["replay"].launches += self._launches
+        elif self.outputs is None:
+            self._results = self._apply()
+            self.outputs = _leaves(self._results)
+        else:
+            for buf, t in zip(self.outputs, _leaves(self._apply())):
+                if t is not buf:
+                    buf.copy_(t)
+        return self._results
+
+    def detach(self, tree):
+        """``tree`` with a copy in place of each buffer in it."""
+        bufs = {id(t) for t in self.inputs + (self.outputs or [])}
+        return _rebuild(tree, iter([t.clone() if id(t) in bufs else t
+                                    for t in _leaves(tree)]))
 
 
 # ---------------------------------------------------------------------------
@@ -649,6 +766,7 @@ def synthetic_pass_inputs(chains: int, dim: int, max_depth: int,
 __all__ = [
     "DEFAULT_PASS_TILE",
     "FusedPassArgs",
+    "GraphedPass",
     "RW_FIELDS",
     "bank_draws",
     "fresh_trajectory",

@@ -339,7 +339,8 @@ class BlockCheckpointer:
 
 
 _ARRAYS = ("n_grads", "n_halve_fail", "n_nonfinite", "n_depth_exhausted")
-_PHASE_COUNTS = ("n_inner_trips", "n_outer_trips", "n_syncs", "n_blocks")
+_PHASE_COUNTS = ("n_inner_trips", "n_outer_trips", "n_syncs", "n_pass_replays",
+                 "n_pass_captures", "n_blocks")
 
 
 def _info_to_dict(info) -> dict:
@@ -370,7 +371,7 @@ def _info_from_dict(d: dict) -> RunInfo:
         if d.get(k) is not None:
             setattr(info, k, np.asarray(d[k]))
     for k in _PHASE_COUNTS:
-        getattr(info, k).update(d[k])
+        getattr(info, k).update(d.get(k, {}))  # older checkpoints lack some
     return info
 
 

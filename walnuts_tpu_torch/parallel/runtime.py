@@ -227,10 +227,15 @@ class RunInfo:
     evaluations (``n_inner_trips``), tier-2 passes (``n_outer_trips``),
     device-to-host reads of loop conditions (``n_syncs``) and blocks run,
     each per phase, and the wall seconds of each phase (host clock, ending
-    on a device synchronize). A run resumed from a checkpoint restores
-    every counter, so they cover the whole run; ``seconds`` counts this
-    process only. On the classic path ``n_outer_trips`` counts
-    attempts and ``n_inner_trips`` the model evaluations the host asked for:
+    on a device synchronize). On the card the batched scheduler replays
+    each tier-2 pass as a CUDA graph: ``n_pass_replays`` counts those
+    replays (every pass, ``n_outer_trips``), ``n_pass_captures`` the graphs
+    captured (one for each shape a phase's blocks meet); both are 0 on the
+    CPU, on the classic path and with ``pallas_pass``. A run resumed from a
+    checkpoint restores every counter, so they cover the whole run;
+    ``seconds`` counts this process only. On the classic path
+    ``n_outer_trips`` counts attempts and ``n_inner_trips`` the model
+    evaluations the host asked for:
     masked leapfrog steps, or integrator calls when an integrator runs the
     attempt (``core.transition.TripCounts``).
     """
@@ -248,6 +253,8 @@ class RunInfo:
     n_inner_trips: dict = field(default_factory=lambda: {"warmup": 0, "sampling": 0})
     n_outer_trips: dict = field(default_factory=lambda: {"warmup": 0, "sampling": 0})
     n_syncs: dict = field(default_factory=lambda: {"warmup": 0, "sampling": 0})
+    n_pass_replays: dict = field(default_factory=lambda: {"warmup": 0, "sampling": 0})
+    n_pass_captures: dict = field(default_factory=lambda: {"warmup": 0, "sampling": 0})
     n_blocks: dict = field(default_factory=lambda: {"warmup": 0, "sampling": 0})
     seconds: dict = field(default_factory=lambda: {"warmup": 0.0, "sampling": 0.0})
 
@@ -255,6 +262,8 @@ class RunInfo:
         self.n_inner_trips[phase] += res.n_inner_trips
         self.n_outer_trips[phase] += res.n_outer_trips
         self.n_syncs[phase] += res.n_syncs
+        self.n_pass_replays[phase] += res.n_pass_replays
+        self.n_pass_captures[phase] += res.n_pass_captures
         self.n_blocks[phase] += 1
 
     def _fails(self, fails: FailStats) -> None:
@@ -498,7 +507,8 @@ def _run_grouped(block, state, cost: torch.Tensor, batched_groups: int):
     for idx in _groups(cost, batched_groups):
         sub, res = block(_tree_take(state, idx), idx)
         parts.append((idx, sub))
-        counts += TripCounts(res.n_inner_trips, res.n_outer_trips, res.n_syncs)
+        counts += TripCounts(res.n_inner_trips, res.n_outer_trips, res.n_syncs,
+                             res.n_pass_replays, res.n_pass_captures)
     new = _tree_put(parts, state.theta.shape[0])
     return new, counts, (new.n_grads - state.n_grads).double()
 
